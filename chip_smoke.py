@@ -4,18 +4,28 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; TF32 off (the reference computes fp32);
-  2. build every CUDA kernel of the serving path from ``dsrg_tpu_torch/csrc``;
-  3. each kernel against its plain PyTorch version on the card, at the shapes
-     the serving path gives it (8 images of 500x375 on a 512x384 canvas:
-     1040 tiles of 1600 pixels, gc = 21, C = 21 and C = 1), timed beside the
-     plain version, one library call and the card's bound;
-  4. the serving path itself: ``Predictor.predict_masks_device`` with the
-     21-class, 4-head VGG16-LargeFOV (random weights from a numpy seed) on 8
-     synthetic 500x375 images, in sizes mode (241, 321, 401) and in scales
-     mode (0.75, 1, 1.25), both with the dense CRF; the kernels' launch
-     counts prove the path went through them;
-  5. the same pipeline on a small input on the card and on the CPU (plain
-     versions), whose masks must agree.
+  2. build every CUDA kernel of the port from ``dsrg_tpu_torch/csrc``, one
+     nvcc per source, all started together;
+  3. the mmgrid kernels against their plain PyTorch versions on the card, at
+     the shapes the serving path gives them (8 images of 500x375 on a
+     512x384 canvas: 1040 tiles of 1600 pixels, gc = 21, C = 21 and C = 1),
+     timed beside the plain version, one library call and the card's bound;
+  4. the pool backward kernels against their plain versions at the five max
+     pools of the train step (batch 20 @ 321^2), on integer data full of
+     ties (the error must be 0), timed the same way;
+  5. the serving path: ``Predictor.predict_masks_device`` with the 21-class,
+     4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
+     500x375 images, in sizes mode (241, 321, 401) and in scales mode
+     (0.75, 1, 1.25), both with the dense CRF; the kernels' launch counts
+     prove the path went through them; then the same pipeline on a small
+     input on the card and on the CPU (plain versions), whose masks must
+     agree;
+  6. the stage-1 train step: ``init_stage1`` + ``make_stage1_step`` with the
+     default ``Stage1Config`` (batch 20 @ 321^2, 21 classes, 4 heads, exact
+     CRF at 41^2, fp32) on a synthetic batch; 2 warm-up and 5 timed steps
+     with finite losses and 5 + 5 pool kernel launches per step, one step
+     under the profiler, one with the region growing timed; then one tiny
+     step from the same weights on the card and on the CPU, which must agree.
 The last lines are a JSON line of kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without that line when
 there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
@@ -36,8 +46,14 @@ SEED = 0
 N_IMAGES, IMG_H, IMG_W = 8, 375, 500
 SIZES, SCALES = (241, 321, 401), (0.75, 1.0, 1.25)
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (data sheet)
+PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = 1e-5  # x max|plain|: the kernels differ from the plain versions in fp32 summation order only
+TRAIN_BATCH, TRAIN_STEPS = 20, 5
+# (channels, H, W, stride) of the five 3x3 pad-1 MAX pools at 321^2
+POOLS = ((64, 321, 321, 2), (128, 161, 161, 2), (256, 81, 81, 2), (512, 41, 41, 1),
+         (512, 41, 41, 1))
+CARD_VS_CPU_RTOL = 1e-3  # fp32 sums in other orders through a VGG step
 
 
 def _smi() -> str:
@@ -142,13 +158,105 @@ def _kernel_phase(mk, tmm, dev, rng) -> dict:
     return rows
 
 
-def _profile_phase(predictor, images, out_dir: Path) -> None:
-    """One sizes-mode chunk under torch.profiler: device time by kernel group."""
+def _pool_phase(pk, pooling, dev) -> dict:
+    """pool_bwd_h / pool_bwd_w vs their plain versions at the train step's
+    five pools.  Returns each kernel's row, its times the mean per launch
+    over one step's five launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "op_bound_ms")
+    sums = {n: dict.fromkeys(keys, 0.0) for n in ("pool_bwd_h", "pool_bwd_w")}
+    err = {n: 0.0 for n in sums}
+    for i, (c, h, w, s) in enumerate(POOLS, 1):
+        ho, ph = pooling._caffe_pool_geometry(h, 3, s, 1)
+        wo, pw = pooling._caffe_pool_geometry(w, 3, s, 1)
+        # the library yardstick: ATen's max-pool backward on the -inf padded
+        # pass input, through the indices of its own forward (first max)
+        x = ints(0, 3, (TRAIN_BATCH, c, h, w))
+        xp = pooling._pad_hw(x, (0, 0), pw, float("-inf"))
+        yw_full, idx_w = torch.ops.aten.max_pool2d_with_indices(xp, [1, 3], [1, s])
+        yw = yw_full[..., :wo].contiguous()
+        ywp = pooling._pad_hw(yw, ph, (0, 0), float("-inf"))
+        y_full, idx_h = torch.ops.aten.max_pool2d_with_indices(ywp, [3, 1], [s, 1])
+        g, gw = ints(-4, 5, (TRAIN_BATCH, c, ho, wo)), ints(-4, 5, (TRAIN_BATCH, c, h, wo))
+        g_lib = torch.nn.functional.pad(g, (0, 0, 0, y_full.shape[2] - ho))
+        gw_lib = torch.nn.functional.pad(gw, (0, yw_full.shape[3] - wo))
+        aten_bwd = torch.ops.aten.max_pool2d_with_indices_backward
+        cases = {
+            "pool_bwd_h": (lambda: pk.pool_bwd_h(yw, g, 3, s, 1),
+                           lambda: pk.pool_bwd_h_plain(yw, g, 3, s, 1),
+                           lambda: aten_bwd(g_lib, ywp, [3, 1], [s, 1], [0, 0], [1, 1], False, idx_h),
+                           lambda out: out[:, :, ph[0]: ph[0] + h],
+                           yw.numel() + g.numel() + yw.numel(), yw.numel()),
+            "pool_bwd_w": (lambda: pk.pool_bwd_w(x, gw, 3, s, 1),
+                           lambda: pk.pool_bwd_w_plain(x, gw, 3, s, 1),
+                           lambda: aten_bwd(gw_lib, xp, [1, 3], [1, s], [0, 0], [1, 1], False, idx_w),
+                           lambda out: out[..., pw[0]: pw[0] + w],
+                           x.numel() + gw.numel() + x.numel(), x.numel()),
+        }
+        for name, (kern, plain, lib, crop, n_floats, n_out) in cases.items():
+            got, ref, lib_out = kern(), plain(), crop(lib())
+            torch.cuda.synchronize()
+            e = (got - ref).abs().max().item()
+            lib_agrees = torch.equal(got, lib_out)
+            print(f"pool{i} {name} (B, C, H, W) = {(TRAIN_BATCH, c, h, w)} s{s}: max_abs_err {e} "
+                  f"{'ok' if e == 0.0 else 'FAIL'}; ATen's routing {'agrees' if lib_agrees else 'differs'}",
+                  flush=True)
+            if e != 0.0:
+                raise SystemExit(f"{name} disagrees with its plain version at pool{i}")
+            err[name] = max(err[name], e)
+            del got, ref, lib_out
+            row = dict(ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 3), library_ms=_time_ms(lib, 20),
+                       bound_ms=1e3 * 4 * n_floats / PEAK_BYTES,
+                       # per output element: k windows, each k compares for its max and < k for the first hit
+                       op_bound_ms=1e3 * n_out * 3 * 6 / PEAK_FP32)
+            print(f"pool{i} {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"ATen max_pool2d_with_indices_backward {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms (bytes; operations {row['op_bound_ms']:.4f} ms)", flush=True)
+            for k in keys:
+                sums[name][k] += row[k]
+        del x, xp, yw_full, idx_w, yw, ywp, y_full, idx_h, g, gw, g_lib, gw_lib, cases
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, tot in sums.items():
+        print(f"{name} over the five pools of a step: kernel {tot['ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f} ms, ATen {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
+              flush=True)
+        per = {k: v / len(POOLS) for k, v in tot.items()}
+        bound_by = "bytes" if per["bound_ms"] >= per["op_bound_ms"] else "operations"
+        rows[name] = dict(max_abs_err=err[name], ms=per["ms"], plain_ms=per["plain_ms"],
+                          bound_ms=max(per["bound_ms"], per["op_bound_ms"]), bound_by=bound_by,
+                          library_ms=per["library_ms"])
+    return rows
+
+
+def _group(kernel: str) -> str:
+    name = kernel.lower()
+    if "splat_kernel" in name:
+        return "mmgrid_splat"
+    if "slice_kernel" in name:
+        return "mmgrid_slice"
+    if "pool_bwd" in name:
+        return "pool_bwd"
+    # cuDNN's FFT convolutions run complex ("cf32") GEMMs between their FFTs
+    if any(k in name for k in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn", "fft",
+                               "cf32")):
+        return "convolution"
+    if "gemm" in name:
+        return "gemm"
+    return "other"
+
+
+def _profile(title: str, fn, out_file: Path) -> None:
+    """``fn()`` once under torch.profiler: device time by kernel group."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_masks_device(images, sizes=SIZES)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     groups: dict = {}
@@ -157,33 +265,128 @@ def _profile_phase(predictor, images, out_dir: Path) -> None:
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = evt.self_device_time_total / 1e3
-        name = evt.key.lower()
-        if "splat_kernel" in name:
-            group = "mmgrid_splat"
-        elif "slice_kernel" in name:
-            group = "mmgrid_slice"
-        elif any(k in name for k in ("conv", "fprop", "implicit", "winograd", "cudnn", "fft")):
-            group = "convolution"
-        elif "gemm" in name:
-            group = "gemm"
-        else:
-            group = "other"
+        group = _group(evt.key)
         groups[group] = groups.get(group, 0.0) + ms
         kernels.append((ms, evt.count, evt.key))
     busy = sum(groups.values())
     if busy == 0.0:
-        print("profile: the profiler recorded no device time", flush=True)
+        print(f"profile ({title}): the profiler recorded no device time", flush=True)
         return
-    print(f"profile (sizes mode, one chunk, under the profiler): wall {wall_ms:.1f} ms, device busy "
+    print(f"profile ({title}, under the profiler): wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1.0 - busy / wall_ms):.3f}", flush=True)
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {group}: {ms:.2f} ms ({ms / busy:.3f} of device time)", flush=True)
     kernels.sort(reverse=True)
     for ms, count, key in kernels[:12]:
         print(f"    {ms:9.2f} ms  x{count:<5d} {key[:110]}", flush=True)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "chip_smoke_profile.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    out_file.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+
+
+def _train_batch(rng, cfg, dev) -> dict:
+    """A synthetic stage-1 batch as ``bench.py`` builds it: background plus
+    two random classes per image, 2% cue density, N(0, 40) images."""
+    b, m = cfg.batch_size, cfg.num_classes
+    labels = np.zeros((b, m), np.float32)
+    labels[:, 0] = 1.0
+    for i in range(b):
+        labels[i, rng.integers(1, m, size=2)] = 1.0
+    cues = (rng.uniform(size=(b, cfg.cue_size, cfg.cue_size, m)) < 0.02).astype(np.float32)
+    images = rng.normal(size=(b, cfg.crop_size, cfg.crop_size, 3)).astype(np.float32) * 40
+    batch = {"images": images, "labels": labels, "cues": cues * labels[:, None, None, :]}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _train_phase(pk, rng, out_dir: Path) -> dict:
+    """The stage-1 step at full width; returns the pool kernels' launches."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.ops.grow import region_grow
+    from dsrg_tpu_torch.train import stage1
+
+    cfg = Stage1Config(batch_size=TRAIN_BATCH)
+    model = DeepLabLargeFOV(num_classes=cfg.num_classes)
+    state = stage1.init_stage1(model, cfg)  # on the card: the default
+    step = stage1.make_stage1_step(model, cfg, state.optimizer, state.generator)
+    batch = _train_batch(rng, cfg, next(model.parameters()).device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"train: {type(model).__name__} {n_params} parameters on {next(model.parameters()).device}, "
+          f"batch {cfg.batch_size} @ {cfg.crop_size}^2, cues {cfg.cue_size}^2, {cfg.num_classes} "
+          f"classes, heads {model.head_dilations}, CRF {cfg.crf_iters} iterations", flush=True)
+
+    def check(metrics, what):
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"  {what}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()), flush=True)
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise SystemExit(f"train step {what}: non-finite metrics {vals}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        check(step(batch), f"warm-up step {i}")
+    torch.cuda.synchronize()
+    pk.pool_bwd_h.launches = pk.pool_bwd_w.launches = 0
+    checks0 = region_grow.dsrg_grow.checks
+    t0 = time.perf_counter()
+    metrics = [step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {"pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches}
+    checks = (region_grow.dsrg_grow.checks - checks0) / TRAIN_STEPS
+    for i, m in enumerate(metrics):
+        check(m, f"timed step {i}")
+    print(f"main path (train): {1e3 * dt:.1f} ms/step, {cfg.batch_size / dt:.2f} images/s over "
+          f"{TRAIN_STEPS} steps; launches {launches}; region-growing convergence checks "
+          f"{checks:.1f}/step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if launches != {n: 5 * TRAIN_STEPS for n in launches}:
+        raise SystemExit(f"pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each")
+
+    _profile("train, one step", lambda: step(batch), out_dir / "chip_smoke_train_profile.txt")
+
+    # one more step with the region growing bracketed by synchronisations
+    grow, grow_ms = stage1.dsrg_grow, []
+
+    def timed_grow(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = grow(*args, **kwargs)
+        torch.cuda.synchronize()
+        grow_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    stage1.dsrg_grow = timed_grow
+    try:
+        checks0 = region_grow.dsrg_grow.checks
+        step(batch)
+    finally:
+        stage1.dsrg_grow = grow
+    print(f"region growing: {grow_ms[0]:.2f} ms of the step, "
+          f"{region_grow.dsrg_grow.checks - checks0} convergence checks", flush=True)
+    del state, step, model, batch, metrics
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_card_vs_cpu(rng) -> None:
+    """One tiny step from the same weights on the card and on the CPU."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
+
+    cfg = Stage1Config(num_classes=6, batch_size=2, crop_size=41, cue_size=6, crf_iters=2, mirror=False)
+    batch = {k: v.numpy() for k, v in _train_batch(rng, cfg, "cpu").items()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4), dropout_rate=0.0)
+        state = init_stage1(model, cfg, device=dev)  # the same seeded weights on both
+        m = make_stage1_step(model, cfg, state.optimizer, state.generator)(batch)
+        out[dev] = {k: v.item() for k, v in m.items()}
+    print(f"card vs CPU step: card {out['cuda']}, CPU {out['cpu']}", flush=True)
+    for key in ("loss", "loss_seed", "loss_constrain", "grad_norm"):
+        a, b = out["cuda"][key], out["cpu"][key]
+        if not abs(a - b) <= CARD_VS_CPU_RTOL * abs(b):
+            raise SystemExit(f"card vs CPU step: {key} {a} vs {b}")
+    if out["cuda"]["seed_pixels"] != out["cpu"]["seed_pixels"]:
+        raise SystemExit("card vs CPU step: seed_pixels differ")
 
 
 def main() -> int:
@@ -194,6 +397,8 @@ def main() -> int:
     from dsrg_tpu_torch import _build
     from dsrg_tpu_torch.inference import Predictor
     from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.ops import pooling
     from dsrg_tpu_torch.ops.crf import mmgrid as tmm
     from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
 
@@ -202,14 +407,15 @@ def main() -> int:
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # a server's canvases come in a few bucketed shapes: let cuDNN time its
-    # algorithms once per shape (the warm-up chunk) instead of guessing
+    # a server's canvases come in a few bucketed shapes and a trainer's crop
+    # is fixed: let cuDNN time its algorithms once per shape (the warm-up)
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
 
     t0 = time.perf_counter()
-    logs = _build.build(mk.KERNELS)
+    logs = _build.build(mk.KERNELS + pk.KERNELS)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -217,6 +423,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     rows = _kernel_phase(mk, tmm, dev, rng)
+    rows.update(_pool_phase(pk, pooling, dev))
 
     model = DeepLabLargeFOV(num_classes=21)
     params = _weights(model, rng)
@@ -245,7 +452,8 @@ def main() -> int:
         print(f"  classes present: {sorted(set(np.unique(np.concatenate([m.ravel() for m in masks])).tolist()))}",
               flush=True)
 
-    _profile_phase(predictor, images, Path(__file__).resolve().parent / "chiprun_out")
+    _profile("sizes mode, one chunk", lambda: predictor.predict_masks_device(images, sizes=SIZES),
+             out_dir / "chip_smoke_profile.txt")
 
     # the same pipeline on a small input, on the card and on the CPU (plain versions), must agree
     small = _images(rng, 2, 72, 96)
@@ -257,6 +465,11 @@ def main() -> int:
         print(f"card vs CPU masks {mode}: agreement {agree:.5f}", flush=True)
         if agree <= 0.99:
             raise SystemExit("the card's masks disagree with the CPU's")
+    del predictor, cpu_pred, model
+    torch.cuda.empty_cache()
+
+    launches.update(_train_phase(pk, rng, out_dir))
+    _train_card_vs_cpu(rng)
 
     kernels = [
         {"name": "mmgrid_splat", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_splat.cu",
@@ -265,6 +478,12 @@ def main() -> int:
         {"name": "mmgrid_slice", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_slice.cu",
          "replaces": "dsrg_tpu/ops/crf/pallas_mmgrid.py:87", "launches": launches["mmgrid_slice"],
          **rows["mmgrid_slice"]},
+        {"name": "pool_bwd_h", "route": "cuda", "source": "dsrg_tpu_torch/csrc/pool_bwd_h.cu",
+         "replaces": "dsrg_tpu/ops/pallas_pool.py:166", "launches": launches["pool_bwd_h"],
+         **rows["pool_bwd_h"]},
+        {"name": "pool_bwd_w", "route": "cuda", "source": "dsrg_tpu_torch/csrc/pool_bwd_w.cu",
+         "replaces": "dsrg_tpu/ops/pallas_pool.py:189", "launches": launches["pool_bwd_w"],
+         **rows["pool_bwd_w"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(_smi())

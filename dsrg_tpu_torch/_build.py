@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -88,3 +90,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def launch(lib_name: str, out: torch.Tensor, args) -> None:
+    """Call the C entry point ``lib_name`` of ``csrc/<lib_name>.cu`` on the
+    current stream of ``out``'s device.  ``args``: the kernel's arguments
+    before the output (tensors and ints), then the ints after it; the stream
+    comes last.  Raises on a non-zero CUDA error code."""
+    fn = getattr(load(lib_name), lib_name)
+    before, after = args
+    fn.argtypes = ([ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_int for a in before]
+                   + [ctypes.c_void_p] + [ctypes.c_int] * len(after) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in before),
+                out.data_ptr(), *after, stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib_name} launch failed with CUDA error {rc}")

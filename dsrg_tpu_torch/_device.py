@@ -15,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def kernel_device(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); raises for any other device."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what} take CPU or CUDA tensors, got {x.device}")

@@ -1,4 +1,4 @@
-"""DeepLab-LargeFOV VGG16 backbone with multi-dilation heads (eval forward).
+"""DeepLab-LargeFOV VGG16 backbone with multi-dilation heads.
 
 Counterpart of ``dsrg_tpu/models/vgg16_largefov.py``: the same stages,
 Caffe pools and summed heads, with parameter names taken from the prototxt
@@ -8,7 +8,12 @@ like the flax module; inside, activations are NCHW for cuDNN.
   conv1_x(64) pool 3/2, conv2_x(128) pool 3/2, conv3_x(256) pool 3/2,
   conv4_x(512) pool 3/1, conv5_x(512, dil 2) pool 3/1, pool5a AVE 3/1,
   heads k: fc6_k 3x3x1024 (dil d_k) relu, fc7_k 1x1 relu, fc8-SEC_k 1x1,
-  summed.  Dropout is the identity at eval.
+  summed.  Dropout (``drop6``/``drop7``, 8-bit masks) follows each fc6/fc7
+  ReLU at train time and is the identity at eval.
+
+The train forward's MAX pools are the autograd pool whose backward runs the
+``pool_bwd_h`` / ``pool_bwd_w`` kernels; the eval forward keeps the library
+pool (the same values).
 """
 
 from __future__ import annotations
@@ -20,7 +25,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsrg_tpu_torch.models.masking import pool_out_extent, valid_mask
-from dsrg_tpu_torch.ops.pooling import caffe_avg_pool_nchw, caffe_max_pool_nchw
+from dsrg_tpu_torch.ops.dropout import CaffeDropout
+from dsrg_tpu_torch.ops.pooling import (
+    caffe_avg_pool_nchw,
+    caffe_max_pool_nchw,
+    caffe_max_pool_train,
+)
 
 # name prefix, n convs, channels, dilation
 _STAGES = (
@@ -35,10 +45,11 @@ _POOL_STRIDE = (2, 2, 2, 1, 1)
 
 class DeepLabLargeFOV(nn.Module):
     def __init__(self, num_classes: int = 21,
-                 head_dilations: Sequence[int] = (6, 12, 18, 24)):
+                 head_dilations: Sequence[int] = (6, 12, 18, 24), dropout_rate: float = 0.5):
         super().__init__()
         self.num_classes = num_classes
         self.head_dilations = tuple(head_dilations)
+        self.dropout = CaffeDropout(dropout_rate)
         cin = 3
         for name, n_convs, ch, dil in _STAGES:
             for i in range(1, n_convs + 1):
@@ -49,21 +60,25 @@ class DeepLabLargeFOV(nn.Module):
             self.add_module(f"fc7_{k}", nn.Conv2d(1024, 1024, 1))
             self.add_module(f"fc8-SEC_{k}", nn.Conv2d(1024, num_classes, 1))
 
+    @property
+    def dropout_rate(self) -> float:
+        return self.dropout.rate
+
     def forward(self, x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, H, W, 3) mean-subtracted BGR.  Returns (B, H', W', C) f32.
 
         ``valid_hw``: optional (B, 2) per-image valid extents on a shared
         canvas; the dead region is zeroed before every spatial op, which
         makes the canvas forward exact (``models/masking.py``).
+        ``train``: dropout on, drawing its bytes from ``generator``, and the
+        MAX pools differentiable through the pool backward kernels.
         """
-        if train:
-            raise NotImplementedError(
-                "the port's DeepLabLargeFOV has the eval forward only; the "
-                "train-time forward (dropout, pool backward kernels) is the "
-                "next slice of the port"
-            )
-        x = x.permute(0, 3, 1, 2).float()
+        max_pool = caffe_max_pool_train if train else caffe_max_pool_nchw
+        # a permuted NHWC tensor would carry its channels-last strides through
+        # every convolution; the pool kernels take contiguous NCHW
+        x = x.permute(0, 3, 1, 2).float().contiguous()
         if valid_hw is None:
             vh = vw = None
         else:
@@ -78,15 +93,15 @@ class DeepLabLargeFOV(nn.Module):
         for (name, n_convs, _, _), pstride in zip(_STAGES, _POOL_STRIDE):
             for i in range(1, n_convs + 1):
                 x = F.relu(getattr(self, f"{name}_{i}")(mask(x)))
-            x = caffe_max_pool_nchw(mask(x), 3, pstride, 1)
+            x = max_pool(mask(x), 3, pstride, 1)
             if pstride == 2 and vh is not None:
                 vh, vw = pool_out_extent(vh), pool_out_extent(vw)
         x = mask(caffe_avg_pool_nchw(mask(x), 3, 1, 1))  # pool5a, shared head input
 
         scores = None
         for k in range(1, len(self.head_dilations) + 1):
-            h = F.relu(getattr(self, f"fc6_{k}")(x))
-            h = F.relu(getattr(self, f"fc7_{k}")(h))
+            h = self.dropout(F.relu(getattr(self, f"fc6_{k}")(x)), train, generator)
+            h = self.dropout(F.relu(getattr(self, f"fc7_{k}")(h)), train, generator)
             h = getattr(self, f"fc8-SEC_{k}")(h)
             scores = h if scores is None else scores + h
         return scores.permute(0, 2, 3, 1).float()

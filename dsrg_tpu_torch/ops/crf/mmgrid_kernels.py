@@ -17,11 +17,10 @@ tensor launches the kernel, and anything else raises.  ``splat.launches`` /
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from dsrg_tpu_torch import _build
+from dsrg_tpu_torch._build import launch
+from dsrg_tpu_torch._device import kernel_device
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32
@@ -89,35 +88,9 @@ def _dense16(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(lib_name: str, out: torch.Tensor, args) -> None:
-    """``args``: the kernel's arguments before the output, then after it,
-    as (tensors and ints before, ints after)."""
-    lib = _build.load(lib_name)
-    fn = getattr(lib, lib_name)
-    before, after = args
-    fn.argtypes = ([ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_int for a in before]
-                   + [ctypes.c_void_p] + [ctypes.c_int] * len(after) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in before),
-                out.data_ptr(), *after, stream)
-    if rc != 0:
-        raise RuntimeError(f"{lib_name} launch failed with CUDA error {rc}")
-
-
 def _check_tiles(t: int) -> None:
     if t > 65535:  # one grid row of blocks per tile
         raise ValueError(f"{t} tiles in one launch; the kernels take at most 65535")
-
-
-def _kernel_device(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"mmgrid kernels take CPU or CUDA tensors, got {x.device}")
 
 
 def splat(wbg: torch.Tensor, values: torch.Tensor, wr_t: torch.Tensor) -> torch.Tensor:
@@ -128,12 +101,12 @@ def splat(wbg: torch.Tensor, values: torch.Tensor, wr_t: torch.Tensor) -> torch.
     _check("wbg", wbg, _BF16, (t, px, nb), wbg.device)
     _check("values", values, _F32, (t, c, px), wbg.device)
     _check("wr_t", wr_t, _BF16, (t, gc, px), wbg.device)
-    if not _kernel_device(wbg):
+    if not kernel_device(wbg, "mmgrid kernels"):
         return splat_plain(wbg, values, wr_t)
     _check_tiles(t)
     wbg = _rows16(wbg)
     out = torch.empty((t, nb, gc * c), dtype=_F32, device=wbg.device)
-    _launch("mmgrid_splat", out, ((wbg, wbg.stride(1), _dense16(values), _dense16(wr_t)),
+    launch("mmgrid_splat", out, ((wbg, wbg.stride(1), _dense16(values), _dense16(wr_t)),
                                   (t, px, nb, c, gc)))
     splat.launches += 1
     return out
@@ -150,12 +123,12 @@ def slice(wbg: torch.Tensor, slab: torch.Tensor, wr_t: torch.Tensor) -> torch.Te
     _check("wbg", wbg, _BF16, (t, px, nb), wbg.device)
     _check("slab", slab, _BF16, (t, nb, q), wbg.device)
     _check("wr_t", wr_t, _BF16, (t, gc, px), wbg.device)
-    if not _kernel_device(wbg):
+    if not kernel_device(wbg, "mmgrid kernels"):
         return slice_plain(wbg, slab, wr_t)
     _check_tiles(t)
     wbg, slab = _rows16(wbg), _rows16(slab)
     out = torch.empty((t, c, px), dtype=_F32, device=wbg.device)
-    _launch("mmgrid_slice", out, ((wbg, wbg.stride(1), slab, slab.stride(1), _dense16(wr_t)),
+    launch("mmgrid_slice", out, ((wbg, wbg.stride(1), slab, slab.stride(1), _dense16(wr_t)),
                                   (t, px, nb, c, gc)))
     slice.launches += 1
     return out

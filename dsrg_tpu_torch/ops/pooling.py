@@ -1,4 +1,4 @@
-"""Caffe-semantics pooling on NHWC tensors (forward only).
+"""Caffe-semantics pooling on NCHW and NHWC tensors.
 
 Caffe sizes a pooled axis as ``ceil((H + 2*pad - k) / stride) + 1`` and drops
 the last window when it would start beyond ``H + pad``.  MAX pooling ignores
@@ -6,6 +6,12 @@ the pad (-inf); AVE pooling sums real pixels and divides by the window's
 intersection with the padded extent ``[-pad, H + pad)``.  ``ceil_mode`` of
 ``F.max_pool2d`` has no last-window clip, so the geometry is padded
 explicitly and the library pool runs unpadded.
+
+:func:`caffe_max_pool_train` is the differentiable MAX pool of the train
+step, the counterpart of ``_max_pool_sep_pallas``
+(``dsrg_tpu/ops/pooling.py:239-263``): a W pass then an H pass, whose
+backward routes every window's cotangent to its first maximum in scan order
+on the ``pool_bwd_h`` / ``pool_bwd_w`` kernels (``ops/pool_kernels.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dsrg_tpu_torch.ops.pool_kernels import pool_bwd_h, pool_bwd_w
 
 
 def _caffe_pool_geometry(size: int, k: int, s: int, p: int):
@@ -34,6 +42,34 @@ def caffe_max_pool_nchw(x: torch.Tensor, k: int = 3, stride: int = 2,
     ow, pw = _caffe_pool_geometry(x.shape[3], k, stride, pad)
     y = F.max_pool2d(_pad_hw(x, ph, pw, float("-inf")), k, stride)
     return y[:, :, :oh, :ow]
+
+
+class _CaffeMaxPool(torch.autograd.Function):
+    """Separable Caffe MAX pool with first-max routed backward (NCHW)."""
+
+    @staticmethod
+    def forward(ctx, x, k: int, s: int, p: int):
+        oh, ph = _caffe_pool_geometry(x.shape[2], k, s, p)
+        ow, pw = _caffe_pool_geometry(x.shape[3], k, s, p)
+        yw = F.max_pool2d(_pad_hw(x, (0, 0), pw, float("-inf")), (1, k), (1, s))[:, :, :, :ow]
+        y = F.max_pool2d(_pad_hw(yw, ph, (0, 0), float("-inf")), (k, 1), (s, 1))[:, :, :oh]
+        ctx.save_for_backward(x, yw)
+        ctx.geom = (k, s, p)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, yw = ctx.saved_tensors
+        k, s, p = ctx.geom
+        gw = pool_bwd_h(yw.contiguous(), g.contiguous(), k, s, p)
+        return pool_bwd_w(x.contiguous(), gw, k, s, p), None, None, None
+
+
+def caffe_max_pool_train(x: torch.Tensor, k: int = 3, stride: int = 2,
+                         pad: int = 1) -> torch.Tensor:
+    """(B, C, H, W) Caffe MAX pool with the kernels' routed backward; the
+    same values as :func:`caffe_max_pool_nchw`."""
+    return _CaffeMaxPool.apply(x, k, stride, pad)
 
 
 def _caffe_avg_divisor(size: int, out: int, k: int, s: int, p: int) -> np.ndarray:

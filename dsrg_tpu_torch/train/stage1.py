@@ -1,0 +1,141 @@
+"""The stage-1 DSRG train step (``dsrg_tpu/train/stage1.py``; ``SURVEY.md`` §3.1).
+
+Per step, in the reference's layer order (``train-s.prototxt``):
+  joint random mirror of images and cues   (AnnotationLayer)
+  -> VGG16-LargeFOV train forward          (dropout; pools routed on the kernels)
+  -> floored softmax, then the CRFLayer's clamp with identity gradient
+  -> dense-CRF refinement, once            (CRFLayer + DSRGLayer.refinement)
+  -> seeded region growing                 (no gradient)
+  -> balanced seed loss + constrain loss, weighted sums over valid samples
+  -> backward and the Caffe SGD update     (step-lr policy)
+
+The step runs on the model's device: the card by default, the CPU (plain
+versions of the kernels) when the model was placed there.  Parity with the
+JAX package needs fp32 throughout, so a caller on the card turns TF32 off
+(``torch.backends.cudnn.allow_tf32 = False``; PyTorch's default is True for
+convolutions).  Data-parallel training waits for the port's
+``parallel`` modules.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from dsrg_tpu_torch._device import resolve_device
+from dsrg_tpu_torch.config import Stage1Config
+from dsrg_tpu_torch.data.voc import BGR_MEAN
+from dsrg_tpu_torch.losses import balanced_seed_loss_per_sample, constrain_loss_per_sample
+from dsrg_tpu_torch.ops.crf.api import crf_refine_with_log, crf_refine_with_log_truegrad
+from dsrg_tpu_torch.ops.grow import dsrg_grow
+from dsrg_tpu_torch.ops.softmax import MIN_PROB, clamp_straight_through, floored_softmax
+from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_step
+from dsrg_tpu_torch.train.train_state import TrainState
+
+
+def _device_normalize(images: torch.Tensor) -> torch.Tensor:
+    """f32 mean-subtracted images as they are; raw uint8 BGR minus the VOC mean."""
+    if images.dtype == torch.uint8:
+        return images.float() - torch.as_tensor(BGR_MEAN, device=images.device)
+    return images.float()
+
+
+def init_params(model: nn.Module, seed: int) -> None:
+    """Initialise ``model`` in place with the JAX package's distributions:
+    flax ``nn.Conv``'s default lecun-normal (truncated at 2 sigma, fan-in
+    scaled) for the convolutions, normal(0.01) for the ``fc8`` heads, zero
+    biases.  The draws come from a CPU generator seeded with ``seed``, so
+    the weights are the same on every device; they are not JAX's draws."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                val = torch.zeros(p.shape)
+            elif name.startswith("fc8"):
+                val = torch.empty(p.shape).normal_(0.0, 0.01, generator=gen)
+            else:
+                # .87962566103423978 is the std of a unit normal truncated at +-2
+                std = float(np.sqrt(1.0 / np.prod(p.shape[1:]))) / 0.87962566103423978
+                val = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std,
+                                                  2 * std, generator=gen)
+            p.copy_(val)
+
+
+def make_optimizer(model: nn.Module, cfg: Stage1Config) -> CaffeSGD:
+    return CaffeSGD(dict(model.named_parameters()),
+                    lr_step(cfg.base_lr, cfg.gamma, cfg.stepsize),
+                    momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                    clip_gradients=cfg.clip_gradients)
+
+
+def init_stage1(model: nn.Module, cfg: Stage1Config, device=None) -> TrainState:
+    """Initialise ``model`` (seed ``cfg.seed``), move it to ``device`` (the
+    card by default) and build its optimizer and random stream."""
+    dev = resolve_device(device)
+    init_params(model, cfg.seed)
+    model.to(dev)
+    generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+    return TrainState(model, make_optimizer(model, cfg), generator)
+
+
+def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
+                     generator: Optional[torch.Generator] = None) -> Callable[[dict], dict]:
+    """Build ``step(batch) -> metrics``, which trains ``model`` in place.
+
+    ``batch``: a dict of tensors or arrays with
+      images: (B, H, W, 3) f32 mean-subtracted BGR, or raw uint8 BGR
+      labels: (B, M) multi-hot image labels (bit 0 = background, always 1)
+      cues:   (B, h, w, M) {0, 1} seed cues at score resolution (f32 or uint8)
+      pad_mask: optional (B,) {1, 0}; rows marked 0 contribute nothing to
+        the losses, gradients or metrics.
+    ``metrics``: 0-d tensors ``loss``, ``loss_seed``, ``loss_constrain``,
+    ``seed_pixels`` and ``grad_norm``, as the JAX step returns them.
+    """
+    refine = crf_refine_with_log_truegrad if cfg.crf_true_grad else crf_refine_with_log
+    names = list(optimizer.params)
+    params = [optimizer.params[n] for n in names]
+
+    def train_step(batch: dict) -> dict:
+        device = params[0].device
+
+        def get(key):
+            return torch.as_tensor(batch[key], device=device)
+
+        images = _device_normalize(get("images"))
+        labels = get("labels").float()
+        cues = get("cues").float()
+        b = images.shape[0]
+        weights = (torch.ones(b, device=device) if batch.get("pad_mask") is None
+                   else get("pad_mask").float())
+        if cfg.mirror:
+            flip = torch.rand(b, generator=generator, device=device) < 0.5
+            images = torch.where(flip[:, None, None, None], images.flip(2), images)
+            cues = torch.where(flip[:, None, None, None], cues.flip(2), cues)
+
+        scores = model(images, train=True, generator=generator)
+        probs = clamp_straight_through(floored_softmax(scores), MIN_PROB)
+        q_log, q = refine(probs, images, cfg.crf_scale_factor, cfg.crf_iters, cfg.crf_fast)
+        cues_new = dsrg_grow(labels, cues, q, th1=cfg.th1, th2=cfg.th2)
+        # weighted SUMS of per-sample losses, divided by the valid count below:
+        # the exact mean over valid samples, whatever the padding
+        sum_seed = (weights * balanced_seed_loss_per_sample(probs, cues_new)).sum()
+        sum_con = (weights * constrain_loss_per_sample(probs, q_log)).sum()
+        loss_sum = sum_seed + sum_con
+        grads = torch.autograd.grad(loss_sum, params)
+
+        inv = 1.0 / torch.clamp_min(weights.sum(), 1.0)
+        grads = {n: g * inv for n, g in zip(names, grads)}
+        optimizer.step(grads)
+        with torch.no_grad():
+            return {
+                "loss": loss_sum.detach() * inv,
+                "loss_seed": sum_seed.detach() * inv,
+                "loss_constrain": sum_con.detach() * inv,
+                "seed_pixels": (cues_new * weights[:, None, None, None]).sum(),
+                "grad_norm": global_norm(grads.values()),
+            }
+
+    return train_step

@@ -52,6 +52,47 @@ def test_kernels_match_plain(cuda, t, px, gc, c):
     assert (mk.splat.launches, mk.slice.launches) == (s0 + 1, l0 + 1)
 
 
+# odd shapes: H and W not multiples of 32, C = 3, both strides of the step's
+# 3x3 pad-1 pools and two other windows up to the kernels' largest; integer
+# data 0..2 puts several equal maxima in most windows, so any other tie rule shows
+@pytest.mark.parametrize("h,w,k,s,p", [(37, 45, 3, 2, 1), (38, 29, 3, 2, 1), (41, 41, 3, 1, 1),
+                                       (19, 70, 3, 1, 1), (23, 31, 2, 2, 0), (26, 33, 4, 3, 2)])
+def test_pool_kernels_match_plain(cuda, h, w, k, s, p):
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.ops.pooling import _caffe_pool_geometry
+
+    ho, _ = _caffe_pool_geometry(h, k, s, p)
+    wo, _ = _caffe_pool_geometry(w, k, s, p)
+    rng = np.random.default_rng(h * w + s)
+
+    def ints(lo, hi, shape):
+        return torch.tensor(rng.integers(lo, hi, shape), dtype=torch.float32, device=cuda)
+
+    x, yw = ints(0, 3, (2, 3, h, w)), ints(0, 3, (2, 3, h, wo))
+    g, gw = ints(-4, 5, (2, 3, ho, wo)), ints(-4, 5, (2, 3, h, wo))
+    h0, w0 = pk.pool_bwd_h.launches, pk.pool_bwd_w.launches
+    got_h, got_w = pk.pool_bwd_h(yw, g, k, s, p), pk.pool_bwd_w(x, gw, k, s, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got_h, pk.pool_bwd_h_plain(yw, g, k, s, p))
+    assert torch.equal(got_w, pk.pool_bwd_w_plain(x, gw, k, s, p))
+    assert (pk.pool_bwd_h.launches, pk.pool_bwd_w.launches) == (h0 + 1, w0 + 1)
+
+
+def test_max_pool_train_cuda_matches_cpu(cuda):
+    """The autograd pool on the card (kernels) and on the CPU (plain)."""
+    from dsrg_tpu_torch.ops.pooling import caffe_max_pool_train
+
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.integers(0, 3, (2, 5, 33, 31)), dtype=torch.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        y = caffe_max_pool_train(xd, 3, 2, 1)
+        y.backward(torch.arange(y.numel(), dtype=torch.float32, device=dev).reshape(y.shape) % 7)
+        grads.append(xd.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
 def test_mean_field_cuda_matches_cpu(cuda):
     """Two-colour images: on pixel-noise images a bf16 rounding flip of the
     grid slab (fp32 sums in another order) moves marginals by up to ~8e-3,

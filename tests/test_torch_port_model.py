@@ -98,6 +98,15 @@ def test_largefov_forward_matches_flax(masked):
 
 
 def test_largefov_train_forward_is_not_ported():
-    tm = DeepLabLargeFOV(num_classes=3, head_dilations=(2,))
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 17, 17, 3), train=True)
+    """The train forward is ported now: with dropout off it gives the flax
+    train forward's values, and it differentiates through the routed pools."""
+    jm = JaxLargeFOV(num_classes=3, head_dilations=(2,), dropout_rate=0.0)
+    params = jm.init({"params": jax.random.PRNGKey(1)}, jnp.zeros((1, 33, 33, 3)), train=False)["params"]
+    tm = DeepLabLargeFOV(num_classes=3, head_dilations=(2,), dropout_rate=0.0)
+    tm.load_state_dict(params_from_flax(params))
+    x = (np.random.default_rng(8).normal(size=(2, 33, 35, 3)) * 40).astype(np.float32)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x), train=True))
+    got = tm(torch.from_numpy(x), train=True)
+    np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
+    got.square().sum().backward()
+    assert all(torch.isfinite(p.grad).all() for p in tm.parameters())
