@@ -8,8 +8,13 @@ Phases, each fatal on failure:
      nvcc per source, all started together;
   3. the mmgrid kernels against their plain PyTorch versions on the card, at
      the shapes the serving path gives them (8 images of 500x375 on a
-     512x384 canvas: 1040 tiles of 1600 pixels, gc = 21, C = 21 and C = 1),
-     timed beside the plain version, one library call and the card's bound;
+     512x384 canvas: 1040 tiles of 1600 pixels, gc = 21, C = 21 and C = 1)
+     on a photo-like guide and, at C = 21, on a pixel-noise guide (no two
+     pixels of a tile share their colour bins), and on a small
+     ``spatial_exact`` plan (corner-scaled r weights), each launched twice
+     for equal bits; timed beside the plain version, ``torch.bmm`` on the
+     dense operands and the card's bound for the bytes the sparse kernel
+     must move; the plan's build time and that of the dense operands;
   4. the pool backward kernels against their plain versions at the five max
      pools of the train step (batch 20 @ 321^2), on integer data full of
      ties (the error must be 0), timed the same way;
@@ -17,7 +22,8 @@ Phases, each fatal on failure:
      4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
      500x375 images, in sizes mode (241, 321, 401) and in scales mode
      (0.75, 1, 1.25), both with the dense CRF; the kernels' launch counts
-     prove the path went through them; then the same pipeline on a small
+     prove the path went through them and the count of ``dense_operands``
+     calls that it never built the dense form; then the same pipeline on a small
      input on the card and on the CPU (plain versions), whose masks must
      agree;
   6. the stage-1 train step: ``init_stage1`` + ``make_stage1_step`` with the
@@ -100,62 +106,128 @@ def _weights(model, rng) -> dict:
     return out
 
 
-def _kernel_phase(mk, tmm, dev, rng) -> dict:
-    """Each kernel vs its plain version at the serving path's shapes."""
-    guide = torch.from_numpy(np.stack(_images(rng, N_IMAGES, 384, 512))).to(dev)
+def _hold(what: str, kern, plain) -> float:
+    """Fatal unless ``kern()`` gives the same bits twice and agrees with
+    ``plain()`` within TOL x max|plain|; returns the max abs error."""
+    got, again, ref = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise SystemExit(f"{what}: two launches on the same inputs differ")
+    err = (got - ref).abs().max().item()
+    tol = TOL * ref.abs().max().item()
+    ok = bool(torch.isfinite(got).all().item()) and err <= tol
+    print(f"{what}: max_abs_err {err:.3e} (tolerance {tol:.3e}), two launches equal "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{what} disagrees with its plain version")
+    return err
+
+
+def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels) -> tuple:
+    """Each mmgrid kernel vs its plain version on a plan of ``guide`` at the
+    serving path's shapes, for each channel count.  Returns the kernels' rows
+    at C = 21 and the plan's build time in ms."""
     plan = tmm.MMGridPlan(guide, 80.0, 13.0)
-    wbg, wr = plan.wbg, plan.wr_t_bf16
-    t, px, nb = wbg.shape
-    gc = plan.gc
-    print(f"kernel shapes: T={t} px={px} B={nb} gc={gc}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plan_ms = _time_ms(lambda: tmm.MMGridPlan(guide, 80.0, 13.0), 5)
+    plan_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    sparse = (plan.idx, plan.wbg4, plan.wr2_bf16)
+    (t, px), gc = plan.idx.shape, plan.gc
+    nb = gc * gc
+    kept = sum(x.numel() * x.element_size() for x in (*sparse, plan.wr2, plan.perm)) / 2**20
+    print(f"{what} guide: T={t} px={px} B={nb} gc={gc}; plan build {plan_ms:.3f} ms per chunk of "
+          f"{guide.shape[0]} (synchronised), peak {plan_peak:.1f} MiB above what was allocated, "
+          f"keeps {kept:.1f} MiB of index, order and weights", flush=True)
+    # the dense operands, for the torch.bmm yardstick only: what the dense form's plan had to build
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dense_ms = _time_ms(plan.dense_operands, 3)
+    dense_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    wbg, wr_t = plan.dense_operands()
+    print(f"{what} guide: dense_operands of that plan {dense_ms:.3f} ms, peak {dense_peak:.1f} MiB, "
+          f"{(wbg.numel() + wr_t.numel()) * 2 / 2**20:.1f} MiB of bf16 operands", flush=True)
+    # the slab cells (b, g, r) that some pixel of the tile reaches: what the slice must read
+    cells = torch.zeros((t, nb * gc), dtype=torch.bool, device=dev)
+    bg, lo_r = (plan.idx & 0xFFFF).long(), (plan.idx >> 16).long()
+    for corner in (0, 1, gc, gc + 1):
+        for dr in (0, 1):
+            cells.scatter_(1, (bg + corner) * gc + lo_r + dr, True)
+    reached = int(cells.sum().item())
+    print(f"{what} guide: slab cells reached {reached} of {t * nb * gc} ({reached / (t * nb * gc):.4f})",
+          flush=True)
+    del cells, bg, lo_r
     rows = {}
-    for c in (21, 1):
+    for c in channels:
         q = gc * c
         values = torch.from_numpy(rng.random((t, c, px), dtype=np.float32)).to(dev)
-        slab = mk.padded_empty((t, nb, q), torch.bfloat16, dev)  # the plan's layout
-        slab.copy_(torch.from_numpy(rng.standard_normal((t, nb, q), dtype=np.float32)))
-        slab_c, wbg_c = slab.contiguous(), wbg.contiguous()
-        u = (wr.float()[:, :, None, :] * values.bfloat16().float()[:, None]).bfloat16()
+        slab = torch.from_numpy(rng.standard_normal((t, nb, q), dtype=np.float32)).to(dev).bfloat16()
+        u = (wr_t.float()[:, :, None, :] * values.bfloat16().float()[:, None]).bfloat16()
         u = u.reshape(t, q, px).transpose(1, 2).contiguous()
         wbg_t = wbg.transpose(1, 2).contiguous()
-        gemm_flop = 2.0 * t * px * nb * q
+        gemm_flop = 2.0 * t * px * nb * q  # the dense form multiplies the zeros too
+        sparse_flop = 2.0 * t * px * 8 * c  # 4 corners x 2 r bins per pixel and channel, fp32
+        weights = 16 * t * px  # idx 4 + wbg4 8 + wr2 4 bytes per pixel
+        dense_weights = 2 * t * px * nb + 2 * t * gc * px
+        # bytes a kernel must move: its sparse weights, the pixels' order, values
+        # in and the fp32 slab out (splat); sparse weights, the reached cells of
+        # the bf16 slab in and values out (slice)
         cases = {
             "mmgrid_splat": (
-                lambda: mk.splat(wbg, values, wr), lambda: mk.splat_plain(wbg, values, wr),
-                lambda: torch.bmm(wbg_t, u),
-                2 * t * px * nb + 4 * t * c * px + 2 * t * gc * px + 4 * t * nb * q),
+                lambda: mk.splat(*sparse, values, gc, plan.perm), lambda: mk.splat_plain(*sparse, values, gc),
+                lambda: torch.bmm(wbg_t, u), 4 * t * px + 4 * t * c * px + 4 * t * nb * q,
+                4 * t * c * px + 4 * t * nb * q),
             "mmgrid_slice": (
-                lambda: mk.slice(wbg, slab, wr), lambda: mk.slice_plain(wbg, slab, wr),
-                lambda: torch.bmm(wbg_c, slab_c),
-                2 * t * px * nb + 2 * t * nb * q + 2 * t * gc * px + 4 * t * c * px),
+                lambda: mk.slice(*sparse, slab, gc), lambda: mk.slice_plain(*sparse, slab, gc),
+                lambda: torch.bmm(wbg, slab), 2 * reached * c + 4 * t * c * px, 2 * t * nb * q + 4 * t * c * px),
         }
-        for name, (kern, plain, lib, nbytes) in cases.items():
-            got = kern()
-            ref = plain()
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            tol = TOL * ref.abs().max().item()
-            ok = bool(torch.isfinite(got).all().item()) and err <= tol
-            print(f"{name} C={c}: max_abs_err {err:.3e} (tolerance {tol:.3e}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version at C={c}")
-            del got, ref
-            ms = _time_ms(kern, 10)
+        for name, (kern, plain, lib, io_bytes, dense_io_bytes) in cases.items():
+            err = _hold(f"{name} C={c}, {what} guide", kern, plain)
+            ms = _time_ms(kern, 20)
             plain_ms = _time_ms(plain, 3)
             lib_ms = _time_ms(lib, 10)
-            bound_by = "bytes" if nbytes / PEAK_BYTES > gemm_flop / PEAK_BF16 else "operations"
-            bound_ms = 1e3 * max(nbytes / PEAK_BYTES, gemm_flop / PEAK_BF16)
-            print(f"{name} C={c}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
-                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-                  f"{gemm_flop / ms / 1e9:.1f} TFLOP/s", flush=True)
+            by_bytes, by_ops = (weights + io_bytes) / PEAK_BYTES, sparse_flop / PEAK_FP32
+            bound_by = "bytes" if by_bytes > by_ops else "operations"
+            bound_ms = 1e3 * max(by_bytes, by_ops)
+            dense_bound_ms = 1e3 * max((dense_weights + dense_io_bytes) / PEAK_BYTES, gemm_flop / PEAK_BF16)
+            print(f"{name} C={c}, {what} guide: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
+                  f"on the dense operands {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{(weights + io_bytes) / 1e6:.1f} MB; the dense form's bound {dense_bound_ms:.4f} "
+                  f"ms); {(weights + io_bytes) / ms / 1e9:.3f} TB/s", flush=True)
             if c == 21:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=lib_ms)
-        del values, slab, u, wbg_t, slab_c, wbg_c
-    del plan, guide
+        del values, slab, u, wbg_t, cases
+    del plan, wbg, wr_t, sparse
     torch.cuda.empty_cache()
-    return rows
+    return rows, plan_ms
+
+
+def _kernel_phase(mk, tmm, dev, rng) -> tuple:
+    """The mmgrid kernels at the serving path's shapes, on the photo-like
+    guide the main path sees (the kernels' rows and the plan's build time come
+    from it) and on pixel noise, where no two pixels of a tile share their
+    bins: the two ends of what a photo can ask of them; then on a small
+    ``spatial_exact`` plan."""
+    guide = torch.from_numpy(np.stack(_images(rng, N_IMAGES, 384, 512))).to(dev)
+    rows, plan_ms = _kernel_case(mk, tmm, dev, rng, "photo-like", guide, (21, 1))
+    guide = torch.from_numpy(rng.integers(0, 256, (N_IMAGES, 384, 512, 3), dtype=np.uint8)).to(dev)
+    _kernel_case(mk, tmm, dev, rng, "pixel-noise", guide, (21,))
+
+    # corner-scaled r weights: a plan of the spatial_exact path, 16x16-pixel tiles
+    guide = torch.from_numpy(np.stack(_images(rng, 2, 72, 96))).to(dev)
+    plan = tmm.MMGridPlan(guide, 16.0, 13.0, spatial_exact=True)
+    (t, px), gc = plan.idx.shape, plan.gc
+    values = torch.from_numpy(rng.random((t, 21, px), dtype=np.float32)).to(dev)
+    slab = torch.from_numpy(rng.standard_normal((t, gc * gc, gc * 21), dtype=np.float32)).to(dev).bfloat16()
+    for ci, wr2 in enumerate(plan.corner_wr2()):
+        ops = (plan.idx, plan.wbg4, wr2)
+        _hold(f"mmgrid_splat spatial_exact corner {ci} (T={t} px={px})",
+              lambda: mk.splat(*ops, values, gc, plan.perm), lambda: mk.splat_plain(*ops, values, gc))
+        _hold(f"mmgrid_slice spatial_exact corner {ci} (T={t} px={px})",
+              lambda: mk.slice(*ops, slab, gc), lambda: mk.slice_plain(*ops, slab, gc))
+    return rows, plan_ms
 
 
 def _pool_phase(pk, pooling, dev) -> dict:
@@ -422,7 +494,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    rows = _kernel_phase(mk, tmm, dev, rng)
+    rows, plan_ms = _kernel_phase(mk, tmm, dev, rng)
     rows.update(_pool_phase(pk, pooling, dev))
 
     model = DeepLabLargeFOV(num_classes=21)
@@ -433,14 +505,19 @@ def main() -> int:
     for mode in ({"sizes": SIZES}, {"scales": SCALES}):
         predictor.predict_masks_device(images, **mode)  # warm-up: cuDNN plans, first launches
         torch.cuda.synchronize()
-        mk.splat.launches = mk.slice.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        mk.splat.launches = mk.slice.launches = mk.dense_operands.calls = 0
         t0 = time.perf_counter()
         masks = predictor.predict_masks_device(images, **mode)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
         print(f"main path {mode}: {1e3 * dt:.1f} ms/chunk of {N_IMAGES}, "
-              f"{N_IMAGES / dt:.2f} images/s, launches {counts}", flush=True)
+              f"{N_IMAGES / dt:.2f} images/s, launches {counts}, dense_operands calls "
+              f"{mk.dense_operands.calls}, CRF plan build {plan_ms:.3f} ms of the chunk, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if mk.dense_operands.calls:
+            raise SystemExit("the main path built the dense operands on the card")
         # one chunk: 1 mask normalisation + 10 mean-field iterations, one launch each
         if counts != {"mmgrid_splat": 11, "mmgrid_slice": 11}:
             raise SystemExit(f"kernel launches {counts}, expected 11 of each")

@@ -1,10 +1,14 @@
 """Matmul bilateral grid: full-resolution dense-CRF filtering.
 
 Counterpart of ``dsrg_tpu/ops/crf/mmgrid.py``.  Pixels are tiled by spatial
-cell; the (b, g) colour interpolation of each pixel is a row of a one-hot
-weight matrix ``wbg`` (tile_px x gc^2), so splat and slice are per-tile
-GEMMs against that tile's colour cube, and the r axis is a 2-sparse
-contraction fused into them (``mmgrid_kernels``).  The fast path resamples
+cell.  There the (b, g) colour interpolation of each pixel is a row of a
+dense weight matrix ``wbg`` (tile_px x gc^2) with 4 non-zeros, and the r
+axis a dense ``wr_t`` (gc x tile_px) with 2 per column, so that splat and
+slice are per-tile GEMMs.  Here the plan keeps the non-zeros only (``idx``,
+``wbg4``, ``wr2`` and the pixels' order ``perm``: the layout is in
+``mmgrid_kernels``) and splat and slice
+are a scatter and a gather over them; ``MMGridPlan.dense_operands`` gives
+``wbg`` / ``wr_t`` back, for tests and yardsticks.  The fast path resamples
 the grid's spatial axes once per filter to half-cell nodes (spatial blur
 folded into the down-resample matrix); ``spatial_exact`` (or an odd cell)
 takes the per-pixel 4-corner bilinear path on the same two kernels with
@@ -93,28 +97,27 @@ class MMGridPlan:
 
         img = torch.round(guide.to(_F32))
         img = torch.nn.functional.pad(img, (0, 0, 0, wp - w, 0, hp - h))
-        cs = self._tile(img) / sigma_rgb  # (N*T, px, 3)
+        # a tensor divisor: by a Python number the card multiplies by the
+        # reciprocal, an ulp away from the CPU's and the reference's quotient
+        cs = self._tile(img) / torch.tensor(float(sigma_rgb), device=dev)  # (N*T, px, 3)
         lo_c = torch.clamp(torch.floor(cs), 0, gc - 2)
-        fc = torch.clamp(cs - lo_c, 0.0, 1.0)
-        lo_c = lo_c.to(torch.int64)
-        iota = torch.arange(gc, device=dev)
-
-        def interp_1d(lo, f):  # 2-sparse (N*T, px, gc) interpolation rows
-            return ((iota == lo[..., None]).to(_F32) * (1.0 - f)[..., None]
-                    + (iota == (lo + 1)[..., None]).to(_F32) * f[..., None])
-
-        wb = interp_1d(lo_c[..., 0], fc[..., 0])
-        wg = interp_1d(lo_c[..., 1], fc[..., 1])
-        # rows padded to 16 bytes for the kernels' loads; the view is (N*T, px, gc^2)
-        self.wbg = mk.padded_empty((n * self.n_tiles, self.tile_px, gc * gc), _BF16, dev)
-        self.wbg.copy_((wb[..., :, None] * wg[..., None, :]).reshape(
-            n * self.n_tiles, self.tile_px, gc * gc))
-        self.wr_t = interp_1d(lo_c[..., 2], fc[..., 2]).transpose(1, 2).contiguous()
-        self.wr_t_bf16 = self.wr_t.to(_BF16)
+        fc = torch.clamp(cs - lo_c, 0.0, 1.0)  # (N*T, px, 3)
+        lo_c = lo_c.to(torch.int32)
+        # the sparse counterpart of the dense (N*T, px, gc^2) wbg and
+        # (N*T, gc, px) wr_t: per pixel one index word, the four (b, g) corner
+        # weights (fp32 product rounded once to bf16) and the two r weights
+        self.idx = mk.pack_index(lo_c[..., 0], lo_c[..., 1], lo_c[..., 2], gc)  # (N*T, px)
+        self.perm = mk.sort_pixels(self.idx)  # the splat walks a tile's pixels by index word
+        fb, fg, fr = fc.unbind(-1)
+        self.wbg4 = torch.stack(
+            [(1.0 - fb) * (1.0 - fg), (1.0 - fb) * fg, fb * (1.0 - fg), fb * fg], 1).to(_BF16)
+        self.wr2 = torch.stack([1.0 - fr, fr], 1)  # (N*T, 2, px) f32
+        self.wr2_bf16 = self.wr2.to(_BF16)
 
         if self.exact:
-            ys = (torch.arange(hp, dtype=_F32, device=dev)[:, None] / s).expand(hp, wp)
-            xs = (torch.arange(wp, dtype=_F32, device=dev)[None, :] / s).expand(hp, wp)
+            cell = torch.tensor(float(s), device=dev)
+            ys = (torch.arange(hp, dtype=_F32, device=dev)[:, None] / cell).expand(hp, wp)
+            xs = (torch.arange(wp, dtype=_F32, device=dev)[None, :] / cell).expand(hp, wp)
             fy, fx = ys - torch.floor(ys), xs - torch.floor(xs)
             sw = torch.stack([(1 - fy) * (1 - fx), (1 - fy) * fx, fy * (1 - fx), fy * fx], -1)
             self.sw = self._tile(sw.expand(n, hp, wp, 4))  # (N*T, px, 4)
@@ -126,6 +129,16 @@ class MMGridPlan:
             # splat-side down-resample with the spatial blur folded in
             self.dy = torch.as_tensor(_blur_band(gy) @ by.T, device=dev)  # (gy, nty)
             self.dx = torch.as_tensor(_blur_band(gx) @ bx.T, device=dev)  # (gx, ntx)
+
+    def dense_operands(self, wr2: torch.Tensor | None = None):
+        """The dense ``wbg`` (N*T, px, gc^2) and ``wr_t`` (N*T, gc, px) bf16
+        operands of the TPU kernels, ``wr_t`` from ``wr2`` (bf16) if given."""
+        return mk.dense_operands(self.idx, self.wbg4, self.wr2_bf16 if wr2 is None else wr2, self.gc)
+
+    def corner_wr2(self) -> list:
+        """``spatial_exact`` path: the r weights scaled by each spatial
+        corner's bilinear weight, four (N*T, 2, px) bf16 tensors."""
+        return [(self.wr2 * self.sw[:, None, :, ci]).to(_BF16) for ci in range(4)]
 
     def _tile(self, arr: torch.Tensor) -> torch.Tensor:
         """(N, hp, wp, X) -> (N*T, tile_px, X)."""
@@ -161,7 +174,7 @@ class MMGridPlan:
         c = values.shape[1]
         n, gy, gx, gc = self.n, self.gy, self.gx, self.gc
         v = self._tile_cf(self.pad_cf(values.to(_F32))).contiguous()
-        g2 = mk.splat(self.wbg, v, self.wr_t_bf16)  # (N*T, gc^2, gc*C)
+        g2 = mk.splat(self.idx, self.wbg4, self.wr2_bf16, v, gc, self.perm)  # (N*T, gc^2, gc*C)
         f = gc * gc * gc * c
         g2 = g2.reshape(n, self.nty, self.ntx * f)
         grid = torch.matmul(self.dy, g2).reshape(n * gy, self.ntx, f)
@@ -170,9 +183,8 @@ class MMGridPlan:
         gf = self._color_blur(g6, c, first_dim=3).reshape(n, gy, gx * f)
         up = torch.matmul(self.by, gf).reshape(n * self.nty, gx, f)
         up = torch.matmul(self.bx, up)  # (N*nty, ntx, f)
-        slab = mk.padded_empty((n * self.n_tiles, gc * gc, gc * c), _BF16, values.device)
-        slab.copy_(up.reshape(n * self.n_tiles, gc * gc, gc * c))
-        out = mk.slice(self.wbg, slab, self.wr_t_bf16)
+        slab = up.reshape(n * self.n_tiles, gc * gc, gc * c).to(_BF16)
+        out = mk.slice(self.idx, self.wbg4, self.wr2_bf16, slab, gc)
         return self._untile_cf(out)[:, :, : self.h, : self.w]
 
     def _filter_exact_cf(self, values: torch.Tensor) -> torch.Tensor:
@@ -181,11 +193,11 @@ class MMGridPlan:
         c = values.shape[1]
         n, gy, gx, gc, nty, ntx = self.n, self.gy, self.gx, self.gc, self.nty, self.ntx
         v = self._tile_cf(self.pad_cf(values.to(_F32))).contiguous()
-        wr_corner = [(self.wr_t * self.sw[:, None, :, ci]).to(_BF16) for ci in range(4)]
+        wr_corner = self.corner_wr2()
 
         grid = torch.zeros((n, gy, gx, gc * gc, gc * c), dtype=_F32, device=values.device)
         for ci, (dy, dx) in enumerate(_CORNERS):
-            g2 = mk.splat(self.wbg, v, wr_corner[ci]).reshape(n, nty, ntx, gc * gc, gc * c)
+            g2 = mk.splat(self.idx, self.wbg4, wr_corner[ci], v, gc, self.perm).reshape(n, nty, ntx, gc * gc, gc * c)
             grid[:, dy: dy + nty, dx: dx + ntx] += g2
         g6 = grid.reshape(n, gy, gx, gc, gc, gc * c)
         gf = self._color_blur(g6, c, first_dim=1).reshape(n, gy, gx, gc * gc, gc * c).to(_BF16)
@@ -193,7 +205,7 @@ class MMGridPlan:
         out = torch.zeros((n * self.n_tiles, c, self.tile_px), dtype=_F32, device=values.device)
         for ci, (dy, dx) in enumerate(_CORNERS):
             slab = gf[:, dy: dy + nty, dx: dx + ntx].reshape(n * self.n_tiles, gc * gc, gc * c)
-            out = out + mk.slice(self.wbg, slab.contiguous(), wr_corner[ci])
+            out = out + mk.slice(self.idx, self.wbg4, wr_corner[ci], slab, gc)
         return self._untile_cf(out)[:, :, : self.h, : self.w]
 
 

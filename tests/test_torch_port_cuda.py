@@ -24,32 +24,60 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, t, px, gc, c, dev):
+def _inputs(seed, t, px, gc, c, dev, clustered):
+    """Sparse operands, values and a slab.  ``clustered``: the pixels of a
+    tile share their bins but for a few, as a photo's do; else every pixel
+    has bins of its own."""
     rng = np.random.default_rng(seed)
-    wbg = rng.random((t, px, gc * gc)) * (rng.random((t, px, gc * gc)) < 0.2)
-    tens = [torch.tensor(a, dtype=torch.float32, device=dev) for a in (
-        wbg, rng.normal(size=(t, c, px)), rng.random((t, gc, px)),
-        rng.normal(size=(t, gc * gc, gc * c)))]
-    wbg, values, wr, slab = tens
-    return wbg.bfloat16(), values, wr.bfloat16(), slab.bfloat16()
+    if clustered:
+        lo = np.clip(rng.integers(0, gc - 1, (3, t, 1)) + (rng.random((3, t, px)) < 0.1), 0, gc - 2)
+    else:
+        lo = rng.integers(0, gc - 1, (3, t, px))
+    fb, fg, fr = rng.random((3, t, px)).astype(np.float32)
+    wbg4 = np.stack([(1 - fb) * (1 - fg), (1 - fb) * fg, fb * (1 - fg), fb * fg], 1)
+    idx = mk.pack_index(*(torch.from_numpy(a) for a in lo), gc).to(dev)
+    wbg4 = torch.from_numpy(wbg4).to(dev).bfloat16()
+    wr2 = torch.from_numpy(np.stack([1 - fr, fr], 1)).to(dev).bfloat16()
+    values = torch.from_numpy(rng.normal(size=(t, c, px)).astype(np.float32)).to(dev)
+    slab = torch.from_numpy(rng.normal(size=(t, gc * gc, gc * c)).astype(np.float32)).to(dev).bfloat16()
+    return (idx, wbg4, wr2), values, slab
 
 
-# odd shapes: px not a multiple of 32, B and Q not multiples of 64, and a C
-# large enough that the slice needs more than 48 KB of shared memory
-@pytest.mark.parametrize("t,px,gc,c", [(3, 1600, 21, 21), (5, 1600, 21, 1), (2, 77, 7, 3),
-                                       (1, 256, 5, 81)])
-def test_kernels_match_plain(cuda, t, px, gc, c):
-    wbg, values, wr, slab = _inputs(t * px + c, t, px, gc, c, cuda)
+# the serving shape (8 images: 1040 tiles of 1600 pixels, gc = 21, C = 21 and
+# the mask normalisation's C = 1) and small odd ones: px not a multiple of
+# 4, more channels than lanes, and an 80 x 80 tile (the ``spatial_exact``
+# path at sigma_xy 80) whose values do not fit the splat's shared memory
+@pytest.mark.parametrize("t,px,gc,c,clustered", [
+    (1040, 1600, 21, 21, True), (1040, 1600, 21, 1, True), (3, 1600, 21, 21, False),
+    (2, 77, 7, 3, False), (5, 300, 9, 40, True), (1, 256, 5, 81, False), (2, 6400, 21, 21, True)])
+def test_kernels_match_plain(cuda, t, px, gc, c, clustered):
+    """Tolerance 1e-5 x max|plain| (fp32 sums in another order); two launches
+    on the same inputs give the same bits, the splat's second one with the
+    pixels' order left for the wrapper to compute."""
+    sparse, values, slab = _inputs(t * px + c, t, px, gc, c, cuda, clustered)
     s0, l0 = mk.splat.launches, mk.slice.launches
-    got = mk.splat(wbg, values, wr)
-    ref = mk.splat_plain(wbg, values, wr)
-    torch.cuda.synchronize()
-    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    got = mk.slice(wbg, slab, wr)
-    ref = mk.slice_plain(wbg, slab, wr)
-    torch.cuda.synchronize()
-    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
-    assert (mk.splat.launches, mk.slice.launches) == (s0 + 1, l0 + 1)
+    perm = mk.sort_pixels(sparse[0])
+    for kernel, plain, x, more in ((mk.splat, mk.splat_plain, values, (perm,)),
+                                  (mk.slice, mk.slice_plain, slab, ())):
+        got, again = kernel(*sparse, x, gc, *more), kernel(*sparse, x, gc)
+        ref = plain(*sparse, x, gc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (mk.splat.launches, mk.slice.launches) == (s0 + 2, l0 + 2)
+
+
+def test_plan_on_the_card_is_sparse(cuda):
+    """The plan and the filter on the card never build the dense operands."""
+    rng = np.random.default_rng(2)
+    guide = torch.from_numpy(rng.integers(0, 255, (2, 90, 70, 3)).astype(np.float32)).to(cuda)
+    calls = mk.dense_operands.calls
+    plan = tmm.MMGridPlan(guide, 80.0, 13.0)
+    plan.filter_cf(torch.rand((2, 3, 90, 70), device=cuda))
+    assert mk.dense_operands.calls == calls and not hasattr(plan, "wbg")
+    cpu_plan = tmm.MMGridPlan(guide.cpu(), 80.0, 13.0)
+    for name in ("idx", "perm", "wbg4", "wr2"):
+        assert torch.equal(getattr(plan, name).cpu(), getattr(cpu_plan, name)), name
 
 
 # odd shapes: H and W not multiples of 32, C = 3, both strides of the step's

@@ -1,7 +1,8 @@
 """The port's mmgrid CRF (dsrg_tpu_torch.ops.crf) held against the JAX package.
 
 Inputs are made with numpy from a seed and fed to both.  The JAX side runs
-its Pallas kernels in interpret mode on the CPU, as its own tests do; the
+its Pallas kernels in interpret mode on the CPU, as its own tests do, on the
+dense operands that ``dense_operands`` makes of the port's sparse ones; the
 port's wrappers take their plain versions for CPU tensors.
 """
 
@@ -18,14 +19,29 @@ from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
 from dsrg_tpu_torch.ops.crf.grid import separable_gaussian_filter_cf
 
 
-def _kernel_inputs(seed, t, px, gc, c):
-    """bf16-representable one-hot-ish weights like a real plan's."""
+def _sparse_inputs(seed, t, px, gc, c, edge=None, corner_scaled=False):
+    """A plan's sparse operands (``mmgrid_kernels``' layout) with values and
+    a slab.  ``edge`` pins every pixel to a clamped end of the colour axes:
+    "top_f1" is lo = gc - 2 with f = 1 (colour 255 and above), "top_f0" is
+    lo = gc - 2 with f = 0, "bottom_f0" is lo = 0 with f = 0.
+    ``corner_scaled`` scales the r weights by a spatial corner weight before
+    they round to bf16, as the ``spatial_exact`` path does."""
     rng = np.random.default_rng(seed)
-    wbg = (rng.random((t, px, gc * gc)) * (rng.random((t, px, gc * gc)) < 0.2)).astype(np.float32)
+    lo = rng.integers(0, gc - 1, (3, t, px))
+    f = rng.random((3, t, px)).astype(np.float32)
+    if edge is not None:
+        lo[:] = 0 if edge == "bottom_f0" else gc - 2
+        f[:] = 1.0 if edge == "top_f1" else 0.0
+    fb, fg, fr = f
+    wbg4 = np.stack([(1 - fb) * (1 - fg), (1 - fb) * fg, fb * (1 - fg), fb * fg], 1)
+    wr2 = np.stack([1 - fr, fr], 1)
+    if corner_scaled:
+        wr2 = wr2 * rng.random((t, 1, px)).astype(np.float32)
+    lo_t = [torch.from_numpy(a) for a in lo]
+    sparse = (mk.pack_index(*lo_t, gc), _bf16_t(wbg4), _bf16_t(wr2))
     values = rng.normal(size=(t, c, px)).astype(np.float32)
-    wr = rng.random((t, gc, px)).astype(np.float32)
     slab = rng.normal(size=(t, gc * gc, gc * c)).astype(np.float32)
-    return wbg, values, wr, slab
+    return sparse, values, slab
 
 
 def _mats(gc, c):
@@ -38,52 +54,106 @@ def _mats(gc, c):
 
 
 def _bf16_t(a):
-    return torch.from_numpy(a).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
 
 
+def _bf16_j(a):
+    """A torch bf16 tensor or a numpy array as a JAX bf16 array (exactly)."""
+    if isinstance(a, torch.Tensor):
+        a = a.float().numpy()
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+def _check_splat(sparse, values, gc, c):
+    """The port's splat on the sparse form against JAX's on the dense one."""
+    tile_mat, _, expand = _mats(gc, c)
+    wbg, wr_t = mk.dense_operands(*sparse, gc)
+    ref = np.asarray(splat_fused(_bf16_j(wbg), jnp.asarray(values), _bf16_j(wr_t),
+                                 _bf16_j(expand), _bf16_j(tile_mat)))
+    got = mk.splat(*sparse, torch.from_numpy(values), gc, mk.sort_pixels(sparse[0])).numpy()
+    assert got.shape == ref.shape == (values.shape[0], gc * gc, gc * c)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def _check_slice(sparse, slab, gc, c):
+    _, sum_mat, expand = _mats(gc, c)
+    wbg, wr_t = mk.dense_operands(*sparse, gc)
+    ref = np.asarray(slice_fused(_bf16_j(wbg), _bf16_j(slab), _bf16_j(wr_t),
+                                 _bf16_j(expand), _bf16_j(sum_mat)))
+    got = mk.slice(*sparse, _bf16_t(slab), gc).numpy()
+    assert got.shape == ref.shape == (slab.shape[0], c, sparse[0].shape[1])
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+# tolerances: 1e-5 x max|ref|, the two sides sum in fp32 in different orders
 @pytest.mark.parametrize("c", [1, 21])
 def test_splat_plain_matches_pallas(c):
     t, px, gc = 3, 48, 5
-    wbg, values, wr, _ = _kernel_inputs(c, t, px, gc, c)
-    tile_mat, _, expand = _mats(gc, c)
-    bf = jnp.bfloat16
-    ref = np.asarray(splat_fused(
-        jnp.asarray(wbg, bf), jnp.asarray(values), jnp.asarray(wr, bf),
-        jnp.asarray(expand, bf), jnp.asarray(tile_mat, bf)))
-    got = mk.splat(_bf16_t(wbg), torch.from_numpy(values), _bf16_t(wr)).numpy()
-    assert got.shape == ref.shape == (t, gc * gc, gc * c)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    sparse, values, _ = _sparse_inputs(c, t, px, gc, c)
+    _check_splat(sparse, values, gc, c)
 
 
 @pytest.mark.parametrize("c", [1, 21])
 def test_slice_plain_matches_pallas(c):
     t, px, gc = 3, 48, 5
-    wbg, _, wr, slab = _kernel_inputs(10 + c, t, px, gc, c)
-    _, sum_mat, expand = _mats(gc, c)
-    bf = jnp.bfloat16
-    ref = np.asarray(slice_fused(
-        jnp.asarray(wbg, bf), jnp.asarray(slab, bf), jnp.asarray(wr, bf),
-        jnp.asarray(expand, bf), jnp.asarray(sum_mat, bf)))
-    got = mk.slice(_bf16_t(wbg), _bf16_t(slab), _bf16_t(wr)).numpy()
-    assert got.shape == ref.shape == (t, c, px)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    sparse, _, slab = _sparse_inputs(10 + c, t, px, gc, c)
+    _check_slice(sparse, slab, gc, c)
+
+
+@pytest.mark.parametrize("edge", ["top_f1", "top_f0", "bottom_f0"])
+def test_kernels_at_clamped_edges_match_pallas(edge):
+    t, px, gc, c = 2, 32, 5, 3
+    sparse, values, slab = _sparse_inputs(20, t, px, gc, c, edge=edge)
+    _check_splat(sparse, values, gc, c)
+    _check_slice(sparse, slab, gc, c)
+
+
+@pytest.mark.parametrize("c", [1, 21])
+def test_kernels_corner_scaled_match_pallas(c):
+    """The ``spatial_exact`` path's operands: r weights scaled by a spatial
+    corner weight, rounded to bf16 after the product."""
+    t, px, gc = 2, 48, 5
+    sparse, values, slab = _sparse_inputs(30 + c, t, px, gc, c, corner_scaled=True)
+    _check_splat(sparse, values, gc, c)
+    _check_slice(sparse, slab, gc, c)
+
+
+def test_dense_operands_layout():
+    """One pixel by hand: bins (b, g, r) = (1, 2, 0) of gc = 4."""
+    idx = mk.pack_index(torch.tensor([[1]]), torch.tensor([[2]]), torch.tensor([[0]]), 4)
+    wbg4 = torch.tensor([[[0.5], [0.25], [0.125], [0.0625]]], dtype=torch.bfloat16)
+    wr2 = torch.tensor([[[0.75], [0.25]]], dtype=torch.bfloat16)
+    wbg, wr_t = mk.dense_operands(idx, wbg4, wr2, 4)
+    want = np.zeros(16, np.float32)
+    want[[1 * 4 + 2, 1 * 4 + 3, 2 * 4 + 2, 2 * 4 + 3]] = [0.5, 0.25, 0.125, 0.0625]
+    np.testing.assert_array_equal(wbg.float().numpy()[0, 0], want)
+    np.testing.assert_array_equal(wr_t.float().numpy()[0, :, 0], [0.75, 0.25, 0.0, 0.0])
 
 
 def test_kernel_wrappers_check_inputs():
-    wbg, values, wr, slab = _kernel_inputs(0, 2, 16, 3, 2)
+    (idx, wbg4, wr2), values, slab = _sparse_inputs(0, 2, 16, 3, 2)
+    values, slab, perm = torch.from_numpy(values), _bf16_t(slab), mk.sort_pixels(idx)
     with pytest.raises(TypeError):
-        mk.splat(torch.from_numpy(wbg), torch.from_numpy(values), _bf16_t(wr))
+        mk.splat(idx, wbg4, wr2, values, 3, perm.long())
+    with pytest.raises(TypeError):
+        mk.splat(idx, wbg4.float(), wr2, values, 3, perm)
+    with pytest.raises(TypeError):
+        mk.slice(idx.long(), wbg4, wr2, slab, 3)
     with pytest.raises(ValueError):
-        mk.slice(_bf16_t(wbg), _bf16_t(slab[:, :, :5]), _bf16_t(wr))
+        mk.slice(idx, wbg4, wr2, slab[:, :, :5], 3)
     with pytest.raises(ValueError):
-        mk.splat(_bf16_t(wbg), torch.from_numpy(values[:1]), _bf16_t(wr))
+        mk.splat(idx, wbg4, wr2, values[:1], 3, perm)
+    with pytest.raises(ValueError):  # bins up to gc - 2 = 1 do not fit gc = 2
+        mk.splat(idx, wbg4, wr2, values, 2, perm)
+    with pytest.raises(ValueError):
+        mk.pack_index(idx, idx, idx, 256)
 
 
 def test_kernel_wrappers_cpu_path_does_not_count():
     s0, l0 = mk.splat.launches, mk.slice.launches
-    wbg, values, wr, slab = _kernel_inputs(1, 2, 16, 3, 2)
-    mk.splat(_bf16_t(wbg), torch.from_numpy(values), _bf16_t(wr))
-    mk.slice(_bf16_t(wbg), _bf16_t(slab), _bf16_t(wr))
+    sparse, values, slab = _sparse_inputs(1, 2, 16, 3, 2)
+    mk.splat(*sparse, torch.from_numpy(values), 3, mk.sort_pixels(sparse[0]))
+    mk.slice(*sparse, _bf16_t(slab), 3)
     assert (mk.splat.launches, mk.slice.launches) == (s0, l0)
 
 
@@ -168,6 +238,23 @@ def test_plan_geometry_matches_jax():
     tp = tmm.MMGridPlan(torch.from_numpy(image)[None], 80.0, 13.0)
     for name in ("s", "ts", "nty", "ntx", "gy", "gx", "gc", "hp", "wp", "n_tiles", "tile_px"):
         assert getattr(tp, name) == getattr(jp, name), name
-    np.testing.assert_array_equal(tp.wbg.float().numpy(), np.asarray(jp.wbg.astype(jnp.float32)))
-    np.testing.assert_allclose(tp.wr_t.numpy(), np.asarray(jp.wr_t), atol=1e-6)
+    assert tp.idx.shape == (tp.n_tiles, tp.tile_px) and tp.wbg4.shape == (tp.n_tiles, 4, tp.tile_px)
+    wbg, wr_t = tp.dense_operands()
+    np.testing.assert_array_equal(wbg.float().numpy(), np.asarray(jp.wbg.astype(jnp.float32)))
+    np.testing.assert_array_equal(wr_t.float().numpy(),
+                                  np.asarray(jp.wr_t.astype(jnp.bfloat16).astype(jnp.float32)))
     np.testing.assert_allclose(tp.dy.numpy(), np.asarray(jp.dy), atol=1e-7)
+
+
+def test_plan_spatial_exact_operands_match_jax():
+    """An odd cell takes the 4-corner path: the corner-scaled r weights,
+    densified, are the operands the JAX plan hands its kernels."""
+    image = np.random.default_rng(4).integers(0, 255, (30, 41, 3)).astype(np.float32)
+    jp = jmm.MMGridPlan(jnp.asarray(image), 15.0, 13.0)
+    tp = tmm.MMGridPlan(torch.from_numpy(image)[None], 15.0, 13.0)
+    assert tp.exact and jp.exact
+    for ci, wr2 in enumerate(tp.corner_wr2()):
+        wbg, wr_t = tp.dense_operands(wr2)
+        ref = (jp.wr_t * jp.sw[:, None, :, ci]).astype(jnp.bfloat16).astype(jnp.float32)
+        np.testing.assert_array_equal(wr_t.float().numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(wbg.float().numpy(), np.asarray(jp.wbg.astype(jnp.float32)))
