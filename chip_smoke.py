@@ -16,8 +16,12 @@ Phases, each fatal on failure:
      dense operands and the card's bound for the bytes the sparse kernel
      must move; the plan's build time and that of the dense operands;
   4. the pool backward kernels against their plain versions at the five max
-     pools of the train step (batch 20 @ 321^2), on integer data full of
-     ties (the error must be 0), timed the same way;
+     pools of the train step (batch 20 @ 321^2), on integer inputs full of
+     ties: with integer cotangents (the error must be 0, and ATen's routing
+     must agree), with normal-distributed cotangents (equal bits: only the
+     sum over taps in the order t = 0..k-1 gives them) and with NaN and +-inf
+     in inputs and cotangents; timed the same way, with the bytes moved, the
+     achieved GB/s, each block's shared memory, and pool1 at other tile sizes;
   5. the serving path: ``Predictor.predict_masks_device`` with the 21-class,
      4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
      500x375 images, in sizes mode (241, 321, 401) and in scales mode
@@ -40,6 +44,7 @@ there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +72,23 @@ def _smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel of a ``-Xptxas -v`` log: its template arguments,
+    registers, static shared memory and spills."""
+    out = []
+    for entry, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=ptxas info\s*: Compil|\Z)", log, re.S):
+        kernel = re.search(r"\d+([a-z_]+_kernel)(.*)", entry)
+        name, rest = (kernel.group(1), kernel.group(2)) if kernel else (entry, "")
+        targs = ",".join(re.findall(r"L[ib](\d+)E", rest.split("Ev")[0]))
+        used = re.search(r"Used (\d+) registers", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        out.append(f"{name}<{targs}>: {used.group(1) if used else '?'} registers, "
+                   f"{smem.group(1) if smem else 0} bytes static shared memory, spills "
+                   f"{'/'.join(spill.groups()) if spill else '?'} bytes")
+    return out
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -230,6 +252,14 @@ def _kernel_phase(mk, tmm, dev, rng) -> tuple:
     return rows, plan_ms
 
 
+def _with_specials(t: torch.Tensor, gen, shares) -> torch.Tensor:
+    """A copy of ``t`` with NaN, +inf and -inf at the given shares of places."""
+    t = t.clone()
+    for value, share in zip((float("nan"), float("inf"), float("-inf")), shares):
+        t[torch.rand(t.shape, generator=gen, device=t.device) < share] = value
+    return t
+
+
 def _pool_phase(pk, pooling, dev) -> dict:
     """pool_bwd_h / pool_bwd_w vs their plain versions at the train step's
     five pools.  Returns each kernel's row, its times the mean per launch
@@ -239,9 +269,13 @@ def _pool_phase(pk, pooling, dev) -> dict:
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
 
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "op_bound_ms")
     sums = {n: dict.fromkeys(keys, 0.0) for n in ("pool_bwd_h", "pool_bwd_w")}
     err = {n: 0.0 for n in sums}
+    forward = {"ms": 0.0, "pad_ms": 0.0}
     for i, (c, h, w, s) in enumerate(POOLS, 1):
         ho, ph = pooling._caffe_pool_geometry(h, 3, s, 1)
         wo, pw = pooling._caffe_pool_geometry(w, 3, s, 1)
@@ -257,41 +291,71 @@ def _pool_phase(pk, pooling, dev) -> dict:
         g_lib = torch.nn.functional.pad(g, (0, 0, 0, y_full.shape[2] - ho))
         gw_lib = torch.nn.functional.pad(gw, (0, yw_full.shape[3] - wo))
         aten_bwd = torch.ops.aten.max_pool2d_with_indices_backward
+        plans = {"pool_bwd_h": pk.plan_h(TRAIN_BATCH * c, h, wo, ho, 3, s, 1), "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo)}
+        # (wrapper, plain version, pass input, integer cotangent, ATen call, crop of its result)
         cases = {
-            "pool_bwd_h": (lambda: pk.pool_bwd_h(yw, g, 3, s, 1),
-                           lambda: pk.pool_bwd_h_plain(yw, g, 3, s, 1),
+            "pool_bwd_h": (pk.pool_bwd_h, pk.pool_bwd_h_plain, yw, g,
                            lambda: aten_bwd(g_lib, ywp, [3, 1], [s, 1], [0, 0], [1, 1], False, idx_h),
-                           lambda out: out[:, :, ph[0]: ph[0] + h],
-                           yw.numel() + g.numel() + yw.numel(), yw.numel()),
-            "pool_bwd_w": (lambda: pk.pool_bwd_w(x, gw, 3, s, 1),
-                           lambda: pk.pool_bwd_w_plain(x, gw, 3, s, 1),
+                           lambda out: out[:, :, ph[0]: ph[0] + h]),
+            "pool_bwd_w": (pk.pool_bwd_w, pk.pool_bwd_w_plain, x, gw,
                            lambda: aten_bwd(gw_lib, xp, [1, 3], [1, s], [0, 0], [1, 1], False, idx_w),
-                           lambda out: out[..., pw[0]: pw[0] + w],
-                           x.numel() + gw.numel() + x.numel(), x.numel()),
+                           lambda out: out[..., pw[0]: pw[0] + w]),
         }
-        for name, (kern, plain, lib, crop, n_floats, n_out) in cases.items():
-            got, ref, lib_out = kern(), plain(), crop(lib())
+        # the forward of the same pool: two library max pools, each on a copy padded with -inf
+        pads = _time_ms(lambda: pooling._pad_hw(x, (0, 0), pw, float("-inf")), 20) \
+            + _time_ms(lambda: pooling._pad_hw(yw, ph, (0, 0), float("-inf")), 20)
+        fwd = _time_ms(lambda: pooling.caffe_max_pool_train(x, 3, s, 1), 20)
+        print(f"pool{i} forward: {fwd:.4f} ms, of which the two F.pad copies to -inf {pads:.4f} ms", flush=True)
+        forward["ms"] += fwd
+        forward["pad_ms"] += pads
+        for name, (wrapper, plain_fn, src, cot, lib, crop) in cases.items():
+            def kern(tile_bytes=pk.TILE_BYTES):
+                return wrapper(src, cot, 3, s, 1, tile_bytes)
+
+            def plain():
+                return plain_fn(src, cot, 3, s, 1)
+
+            plan, n_floats = plans[name], 2 * src.numel() + cot.numel()
+            got, again, ref, lib_out = kern(), kern(), plain(), crop(lib())
             torch.cuda.synchronize()
             e = (got - ref).abs().max().item()
-            lib_agrees = torch.equal(got, lib_out)
-            print(f"pool{i} {name} (B, C, H, W) = {(TRAIN_BATCH, c, h, w)} s{s}: max_abs_err {e} "
-                  f"{'ok' if e == 0.0 else 'FAIL'}; ATen's routing {'agrees' if lib_agrees else 'differs'}",
-                  flush=True)
-            if e != 0.0:
-                raise SystemExit(f"{name} disagrees with its plain version at pool{i}")
+            lib_agrees, same = torch.equal(got, lib_out), torch.equal(got, again)
+            # normal cotangents: the plain version's bits need its order of summation;
+            # then NaN and +-inf in the input (5%, 10%, 30%) and in the cotangent (2% each)
+            fcot = normal(cot.shape)
+            floats = torch.equal(wrapper(src, fcot, 3, s, 1), plain_fn(src, fcot, 3, s, 1))
+            ssrc, scot = _with_specials(src, gen, (0.05, 0.1, 0.3)), _with_specials(fcot, gen, (0.02, 0.02, 0.02))
+            sgot, sref = wrapper(ssrc, scot, 3, s, 1), plain_fn(ssrc, scot, 3, s, 1)
+            specials = torch.allclose(sgot, sref, rtol=0.0, atol=0.0, equal_nan=True)
+            n_nan = int(torch.isnan(sref).sum().item())
+            ok = e == 0.0 and same and floats and specials and lib_agrees
+            print(f"pool{i} {name} (B, C, H, W) = {(TRAIN_BATCH, c, h, w)} s{s}: max_abs_err {e}, two "
+                  f"launches equal {same}, normal cotangents equal to plain {floats}, with NaN and inf "
+                  f"equal to plain {specials} ({n_nan} NaN results), ATen's routing "
+                  f"{'agrees' if lib_agrees else 'differs'}: {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit(f"{name} disagrees with its plain version or with ATen at pool{i}")
             err[name] = max(err[name], e)
-            del got, ref, lib_out
+            del got, again, ref, lib_out, fcot, ssrc, scot, sgot, sref
             row = dict(ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 3), library_ms=_time_ms(lib, 20),
                        bound_ms=1e3 * 4 * n_floats / PEAK_BYTES,
-                       # per output element: k windows, each k compares for its max and < k for the first hit
-                       op_bound_ms=1e3 * n_out * 3 * 6 / PEAK_FP32)
+                       # per window k compares for its first maximum, per output element up to k gathered taps
+                       op_bound_ms=1e3 * (cot.numel() * 3 + src.numel() * 3) / PEAK_FP32)
             print(f"pool{i} {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                   f"ATen max_pool2d_with_indices_backward {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms (bytes; operations {row['op_bound_ms']:.4f} ms)", flush=True)
+                  f"{row['bound_ms']:.4f} ms (bytes: {4 * n_floats / 1e6:.1f} MB; operations "
+                  f"{row['op_bound_ms']:.4f} ms); {4 * n_floats / row['ms'] / 1e6:.1f} GB/s; blocks of "
+                  f"{plan.rows} rows x {plan.planes} planes, {plan.smem} bytes of shared memory", flush=True)
+            if i in (1, 4):  # the largest pool and a one-band one at other tile sizes
+                other = {t: _time_ms(lambda: kern(t), 20) for t in (pk.TILE_BYTES // 2, pk.TILE_BYTES * 2)}
+                print(f"pool{i} {name} at other tile sizes: "
+                      + ", ".join(f"{t} bytes {ms:.4f} ms" for t, ms in other.items()), flush=True)
             for k in keys:
                 sums[name][k] += row[k]
         del x, xp, yw_full, idx_w, yw, ywp, y_full, idx_h, g, gw, g_lib, gw_lib, cases
         torch.cuda.empty_cache()
+    print(f"the pools' forward over the five pools of a step: {forward['ms']:.4f} ms, of which the "
+          f"F.pad copies to -inf {forward['pad_ms']:.4f} ms", flush=True)
     rows = {}
     for name, tot in sums.items():
         print(f"{name} over the five pools of a step: kernel {tot['ms']:.4f} ms, plain "
@@ -490,9 +554,8 @@ def main() -> int:
     logs = _build.build(mk.KERNELS + pk.KERNELS)
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for line in _ptxas_summary(log):
+            print(f"  {name}: {line}", flush=True)
 
     rows, plan_ms = _kernel_phase(mk, tmm, dev, rng)
     rows.update(_pool_phase(pk, pooling, dev))

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``.  A source that includes
 PyTorch's headers takes minutes to build; these take seconds.  Libraries go
 into ``dsrg_tpu_torch/_build/`` under a name that carries a hash of the
-source and the flags, so an edited source is never served a stale library.
+source, the headers and the flags, so an edited source is never served a
+stale library.
 Nothing is built or loaded at import time.
 """
 
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers too: a source may include any of them
+    src = b"".join(f.read_bytes() for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

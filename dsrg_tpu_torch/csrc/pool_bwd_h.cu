@@ -13,107 +13,159 @@
 // Window o covers rows o*s - p .. o*s - p + k - 1; rows outside [0, H) are
 // the -inf halo and never hit.  Every window's cotangent goes to its first
 // maximum in scan order (Caffe's stored argmax, XLA's SelectAndScatter
-// order), and the taps are summed in the order t = 0..k-1 as _route_1d sums
-// them, so the result is bit-identical to the JAX kernel on any data.
+// order), a window whose maximum is NaN routes nothing, and the taps are
+// summed in the order t = 0..k-1 as _route_1d sums them, so the result is
+// bit-identical to the JAX kernel on any data.
 //
 // Bound on the H100: bytes.  The pass does a few compares per element and
 // must read yw and g and write gw once (pool1 at batch 20 @ 321^2: 0.66 GB,
-// ~0.2 ms at 3.35 TB/s).  One thread per element of gw, W fastest, so a
-// warp reads 32 neighbouring floats of each row it touches; the 2k - 1 rows
-// around an element that the window maxima need are re-read by the threads
-// of the neighbouring rows from L1/L2, not from device memory, and g is read
-// directly at row (j + p - t) / s (the JAX version's upsampled copy of g is
-// never materialised).  A thread loads its 2k - 1 rows once into registers
-// (k <= KMAX) and recomputes each window's maximum from them; what is left
-// is integer work per element, so the flat index is split with 32-bit
-// divisions whenever the tensor allows it and the stride is a compile-time
-// constant for s = 1 and s = 2.  Sharing the rows across a tile in shared
-// memory, instead of re-reading them from L1/L2 per thread, is later work.
+// ~0.2 ms at 3.35 TB/s); at that rate an SM's schedulers start about 85
+// warp operations for every 32 elements, so the design counts operations as
+// much as bytes.
+//
+// A block owns one band of jb rows of one plane, all Wo columns, or, where
+// planes are small (41 x 41 at pool4 and pool5), a few whole planes (the
+// tiles are planned in ops/pool_kernels.py::plan_h).  Routing along H never
+// leaves a plane, and a band needs the k - 1 rows of yw above and below it
+// and the rows of g whose windows touch it: rows are contiguous, so each is
+// one span of device memory, staged into shared memory once with 16-byte
+// asynchronous copies whatever Wo is (pool_route.cuh).  The halo re-reads
+// 2(k - 1) rows per band; the bands of a plane are neighbours in the grid, so
+// blocks that run together read neighbouring memory and mostly find the halo
+// in L2 (with the planes as neighbours pool1 took a tenth longer).  Then the
+// work is window-centric:
+//   pass 1, over the band's windows: the tap of the window's first maximum
+//     from k shared-memory reads down its column, one byte per window;
+//   pass 2, over the band's elements: the cotangents of the <= ceil(k / s)
+//     windows that hold the element and whose first tap it is, in tap order,
+//     and one coalesced 4-byte store per element (staging the results in
+//     shared memory for 16-byte stores was no faster at any pool).
+// Threads walk a tile by flat position with row and column as loop
+// variables (one division per thread, none per element); a tile's base is
+// 64-bit, offsets inside it are 32-bit.  Stride and window are template
+// arguments for s = 1, 2 and k = 3.  Loads overlap stores across the blocks
+// that are resident on an SM (tiles of ~32 KB, 256 threads), not inside a
+// block.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "pool_route.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int KMAX = 4;  // the largest window; the stage-1 pools use 3
+using namespace pool_route;
 
-// I: the flat index type; S: the stride if known at compile time, else 0
-template <typename I, int S>
-__global__ void pool_bwd_h_kernel(const float* __restrict__ yw, const float* __restrict__ g,
-                                  float* __restrict__ out, I total, int h, int wo, int ho,
-                                  int k, int s_arg, int p) {
+// Rows [y_lo, y_hi) of yw and windows [o_lo, o_hi) of g that band
+// [j0, j1) of a plane needs; o_hi <= o_lo where no window touches it.
+struct Band {
+  int j0, j1, y_lo, y_hi, o_lo, o_hi;
+};
+
+__host__ __device__ inline Band band_of(int b, int jb, int h, int ho, int k, int s, int p) {
+  Band t;
+  t.j0 = b * jb;
+  t.j1 = t.j0 + jb < h ? t.j0 + jb : h;
+  t.y_lo = t.j0 - (k - 1) > 0 ? t.j0 - (k - 1) : 0;
+  t.y_hi = t.j1 + (k - 1) < h ? t.j1 + (k - 1) : h;
+  const int first = t.j0 + p - (k - 1);  // o * s of the first window that reaches row j0
+  t.o_lo = first > 0 ? (first + s - 1) / s : 0;
+  const int last = (t.j1 - 1 + p) / s + 1;
+  t.o_hi = last < ho ? last : ho;
+  if (t.o_hi < t.o_lo) t.o_hi = t.o_lo;
+  return t;
+}
+
+// S, K: the stride and the window if known at compile time, else 0
+template <int S, int K>
+__global__ void __launch_bounds__(THREADS)
+    pool_bwd_h_kernel(const float* __restrict__ yw, const float* __restrict__ g,
+                      float* __restrict__ out, int n, int h, int wo, int ho, int k_arg, int s_arg,
+                      int p, int jb, int n_bands, int pb, int off_g, int off_tap) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int k = K > 0 ? K : k_arg;
   const int s = S > 0 ? S : s_arg;
-  for (I e = blockIdx.x * (I)THREADS + threadIdx.x; e < total; e += (I)gridDim.x * THREADS) {
-    const I nj = e / (I)wo;
-    const int w = (int)(e - nj * (I)wo);
-    const I n = nj / (I)h;
-    const int j = (int)(nj - n * (I)h);
-    const float* col = yw + (size_t)n * h * wo + w;  // column (n, :, w): rows wo apart
-    // rows j + d, d in (-k, k), once into registers: v[d + KMAX - 1], -inf
-    // in the halo, which in[] marks so that it never counts as a hit
-    float v[2 * KMAX - 1];
-    bool in[2 * KMAX - 1];
-#pragma unroll
-    for (int d = 1 - KMAX; d < KMAX; ++d) {
-      const int r = j + d;
-      in[d + KMAX - 1] = d > -k && d < k && r >= 0 && r < h;
-      v[d + KMAX - 1] = in[d + KMAX - 1] ? col[(size_t)r * wo] : -INFINITY;
-    }
-    const float xj = v[KMAX - 1];
-    float acc = 0.0f;
-#pragma unroll
-    for (int t = 0; t < KMAX; ++t) {
-      const int os = j + p - t;  // o * s for the window that holds row j as tap t
-      if (t >= k || os < 0 || os % s != 0 || os / s >= ho) continue;
-      float wm = -INFINITY;  // the window's rows are j - t + u, u < k
-#pragma unroll
-      for (int u = 0; u < KMAX; ++u) {
-        const float x = v[u - t + KMAX - 1];
-        if (u < k) wm = (x > wm || x != x) ? x : wm;  // NaN propagates, as jnp.maximum's does
-      }
-      if (xj != wm) continue;
-      bool first = true;
-#pragma unroll
-      for (int u = 0; u < KMAX; ++u)
-        if (u < t && in[u - t + KMAX - 1] && v[u - t + KMAX - 1] == wm) first = false;
-      if (first) acc += g[((size_t)n * ho + os / s) * wo + w];
-    }
-    out[e] = acc;
+  const int tid = threadIdx.x;
+  // the bands of a plane are neighbours in the grid
+  const int group = blockIdx.x / n_bands;
+  const size_t n0 = (size_t)group * pb;
+  const int np = n - n0 < (size_t)pb ? (int)(n - n0) : pb;  // > 1 only for whole planes
+  const Band t = band_of((int)blockIdx.x - group * n_bands, jb, h, ho, k, s, p);
+  const int n_win = (t.o_hi - t.o_lo) * wo;
+  const int n_el = (t.j1 - t.j0) * wo;
+  const int y_plane = h * wo, g_plane = ho * wo;  // from one plane of the tile to the next
+
+  const float* sy = smem + stage_span(smem, yw + (n0 * h + t.y_lo) * wo,
+                                      (np - 1) * y_plane + (t.y_hi - t.y_lo) * wo, tid);
+  const float* sg = smem + off_g + stage_span(smem + off_g, g + (n0 * ho + t.o_lo) * wo,
+                                              (np - 1) * g_plane + n_win, tid);
+  signed char* stap = reinterpret_cast<signed char*>(smem + off_tap);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const Walk first(tid, wo);
+  for (int q = 0; q < np; ++q) {
+    Walk win = first;
+    for (int f = tid; f < n_win; f += THREADS, win.next())
+      stap[q * g_plane + f] = (signed char)first_max_tap<K, true>(
+          sy + q * y_plane + win.col, wo, t.y_lo, (t.o_lo + win.row) * s - p, h, k);
+  }
+  __syncthreads();
+
+  float* dst = out + (n0 * h + t.j0) * wo;
+  for (int q = 0; q < np; ++q) {
+    Walk el = first;
+    for (int f = tid; f < n_el; f += THREADS, el.next())
+      dst[q * y_plane + f] = route<S, K>(stap + q * g_plane + el.col, sg + q * g_plane + el.col, wo,
+                                         t.o_lo, ho, t.j0 + el.row, p, k, s);
   }
 }
 
-template <int S>
-void launch(const float* yw, const float* g, float* out, long total, int h, int wo, int ho, int k,
-            int s, int p, cudaStream_t stream) {
-  const long blocks = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(blocks < (1L << 30) ? blocks : (1L << 30));
-  if (total <= (1L << 30))  // e + the grid's stride stays below 2^32
-    pool_bwd_h_kernel<unsigned, S><<<grid, THREADS, 0, stream>>>(yw, g, out, (unsigned)total, h,
-                                                                 wo, ho, k, s, p);
-  else
-    pool_bwd_h_kernel<unsigned long long, S><<<grid, THREADS, 0, stream>>>(
-        yw, g, out, (unsigned long long)total, h, wo, ho, k, s, p);
+template <int S, int K>
+int launch(const float* yw, const float* g, float* out, int n, int h, int wo, int ho, int k, int s,
+           int p, int jb, int pb, int n_bands, int off_g, int off_tap, int smem,
+           cudaStream_t stream) {
+  auto kernel = pool_bwd_h_kernel<S, K>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  kernel<<<(n + pb - 1) / pb * n_bands, THREADS, smem, stream>>>(yw, g, out, n, h, wo, ho, k, s, p,
+                                                                 jb, n_bands, pb, off_g, off_tap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success; invalid value for
-// k > KMAX).  yw, g and out are contiguous f32.
+// k > KMAX or a plan whose shared memory is too small for its tiles).  yw, g
+// and out are contiguous f32; a block takes jb rows of each of pb planes
+// (pb > 1 only with jb = h and every window reaching into the plane), with
+// the cotangent rows at float off_g and the taps at float off_tap of smem
+// bytes of shared memory, as plan_h lays them out.
 extern "C" int pool_bwd_h(const void* yw, const void* g, void* out, int n, int h, int wo, int ho,
-                          int k, int s, int p, void* stream) {
-  if (n <= 0 || h <= 0 || wo <= 0 || ho <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k)
+                          int k, int s, int p, int jb, int pb, int off_g, int off_tap, int smem,
+                          void* stream) {
+  if (n <= 0 || h <= 0 || wo <= 0 || ho <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k ||
+      jb <= 0 || pb <= 0 || off_g % 4 || off_tap % 4 || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const long total = (long)n * h * wo;
+  const int n_bands = (h + jb - 1) / jb;
+  if ((long)((n + pb - 1) / pb) * n_bands > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < n_bands; ++b) {
+    const Band t = band_of(b, jb, h, ho, k, s, p);
+    if (pb > 1 && (n_bands > 1 || t.o_lo != 0 || t.o_hi != ho)) return (int)cudaErrorInvalidValue;
+    const long n_win = ((long)(pb - 1) * ho + t.o_hi - t.o_lo) * wo;
+    const long n_y = ((long)(pb - 1) * h + t.y_hi - t.y_lo) * wo;
+    if (span_room(n_y) > off_g || off_g + span_room(n_win) > off_tap ||
+        4L * off_tap + n_win > smem)
+      return (int)cudaErrorInvalidValue;
+  }
   const auto* a = (const float*)yw;
   const auto* b = (const float*)g;
   auto* o = (float*)out;
   const auto st = (cudaStream_t)stream;
-  if (s == 1)
-    launch<1>(a, b, o, total, h, wo, ho, k, s, p, st);
-  else if (s == 2)
-    launch<2>(a, b, o, total, h, wo, ho, k, s, p, st);
-  else
-    launch<0>(a, b, o, total, h, wo, ho, k, s, p, st);
-  return (int)cudaGetLastError();
+#define POOL_BWD_H(S, K) \
+  launch<S, K>(a, b, o, n, h, wo, ho, k, s, p, jb, pb, n_bands, off_g, off_tap, smem, st)
+  if (k == 3) return s == 1 ? POOL_BWD_H(1, 3) : s == 2 ? POOL_BWD_H(2, 3) : POOL_BWD_H(0, 3);
+  return s == 1 ? POOL_BWD_H(1, 0) : s == 2 ? POOL_BWD_H(2, 0) : POOL_BWD_H(0, 0);
+#undef POOL_BWD_H
 }

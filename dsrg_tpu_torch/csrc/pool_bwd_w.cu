@@ -13,105 +13,114 @@
 // Window o covers columns o*s - p .. o*s - p + k - 1; columns outside
 // [0, W) are the -inf halo and never hit.  Every window's cotangent goes to
 // its first maximum in scan order (Caffe's stored argmax, XLA's
-// SelectAndScatter order), and the taps are summed in the order t = 0..k-1
-// as _route_1d sums them, so the result is bit-identical to the JAX kernel
-// on any data.
+// SelectAndScatter order), a window whose maximum is NaN routes nothing, and
+// the taps are summed in the order t = 0..k-1 as _route_1d sums them, so the
+// result is bit-identical to the JAX kernel on any data.
 //
 // Bound on the H100: bytes.  The pass does a few compares per element and
 // must read x and gw and write gx once (pool1 at batch 20 @ 321^2: 1.3 GB,
-// ~0.4 ms at 3.35 TB/s).  One thread per element of gx, W fastest: a warp
-// reads 32 consecutive floats of x and the 2k - 2 around them that the
-// window maxima need come from the same or the next cache line.  gw is read
-// directly at column (j + p - t) / s; the JAX version's XLA-side repeat of
-// gw to the input width is never materialised.  A thread loads its 2k - 1
-// columns once into registers (k <= KMAX) and recomputes each window's
-// maximum from them; what is left is integer work per element, so the flat
-// index is split with a 32-bit division whenever the tensor allows it and
-// the stride is a compile-time constant for s = 1 and s = 2.  Sharing the
-// columns through shared memory is later work.
+// ~0.4 ms at 3.35 TB/s); at that rate an SM's schedulers start about 85
+// warp operations for every 32 elements, so the design counts operations as
+// much as bytes.
+//
+// A block owns rb whole rows (planned in ops/pool_kernels.py::plan_w).
+// Routing along W never leaves a row, so a tile has no halo, and rb rows of
+// x, of gw and of gx are each one contiguous span of device memory, staged
+// into shared memory once with 16-byte asynchronous copies although a row
+// (321, 161, 81 or 41 floats) is never a multiple of 16 bytes
+// (pool_route.cuh).  gw is read at column (j + p - t) / s; the JAX version's
+// repeat of gw to the input width is never materialised.  Then the work is
+// window-centric:
+//   pass 1, over the tile's windows: the tap of the window's first maximum
+//     from k shared-memory reads along its row, one byte per window;
+//   pass 2, over the tile's elements: the cotangents of the <= ceil(k / s)
+//     windows that hold the element and whose first tap it is, in tap order,
+//     and one coalesced 4-byte store per element (staging the results in
+//     shared memory for 16-byte stores was no faster at any pool).
+// Most warps of pass 1 hold a window at a row's edge, so all windows take the
+// path that tests for the halo (first_max_tap's INSIDE path was slower here).
+// Threads walk a tile by flat position with row and column as loop
+// variables (one division per thread and pass, none per element); a tile's
+// base is 64-bit, offsets inside it are 32-bit.  Stride and window are
+// template arguments for s = 1, 2 and k = 3.  Loads overlap stores across
+// the blocks that are resident on an SM (tiles of ~32 KB, 256 threads), not
+// inside a block.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "pool_route.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int KMAX = 4;  // the largest window; the stage-1 pools use 3
+using namespace pool_route;
 
-// I: the flat index type; S: the stride if known at compile time, else 0
-template <typename I, int S>
-__global__ void pool_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gw,
-                                  float* __restrict__ out, I total, int w, int wo, int k,
-                                  int s_arg, int p) {
+// S, K: the stride and the window if known at compile time, else 0
+template <int S, int K>
+__global__ void __launch_bounds__(THREADS)
+    pool_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gw,
+                      float* __restrict__ out, int rows, int w, int wo, int k_arg, int s_arg, int p,
+                      int rb, int off_g, int off_tap) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int k = K > 0 ? K : k_arg;
   const int s = S > 0 ? S : s_arg;
-  for (I e = blockIdx.x * (I)THREADS + threadIdx.x; e < total; e += (I)gridDim.x * THREADS) {
-    const I r = e / (I)w;
-    const int j = (int)(e - r * (I)w);
-    const float* row = x + (size_t)r * w;
-    // columns j + d, d in (-k, k), once into registers: v[d + KMAX - 1],
-    // -inf in the halo, which in[] marks so that it never counts as a hit
-    float v[2 * KMAX - 1];
-    bool in[2 * KMAX - 1];
-#pragma unroll
-    for (int d = 1 - KMAX; d < KMAX; ++d) {
-      const int c = j + d;
-      in[d + KMAX - 1] = d > -k && d < k && c >= 0 && c < w;
-      v[d + KMAX - 1] = in[d + KMAX - 1] ? row[c] : -INFINITY;
-    }
-    const float xj = v[KMAX - 1];
-    float acc = 0.0f;
-#pragma unroll
-    for (int t = 0; t < KMAX; ++t) {
-      const int os = j + p - t;  // o * s for the window that holds column j as tap t
-      if (t >= k || os < 0 || os % s != 0 || os / s >= wo) continue;
-      float wm = -INFINITY;  // the window's columns are j - t + u, u < k
-#pragma unroll
-      for (int u = 0; u < KMAX; ++u) {
-        const float xv = v[u - t + KMAX - 1];
-        if (u < k) wm = (xv > wm || xv != xv) ? xv : wm;  // NaN propagates, as jnp.maximum's does
-      }
-      if (xj != wm) continue;
-      bool first = true;
-#pragma unroll
-      for (int u = 0; u < KMAX; ++u)
-        if (u < t && in[u - t + KMAX - 1] && v[u - t + KMAX - 1] == wm) first = false;
-      if (first) acc += gw[(size_t)r * wo + os / s];
-    }
-    out[e] = acc;
-  }
+  const int tid = threadIdx.x;
+  const size_t r0 = (size_t)blockIdx.x * rb;
+  const int nr = rows - r0 < (size_t)rb ? (int)(rows - r0) : rb;
+  const int n_win = nr * wo;
+  const int n_el = nr * w;
+
+  const float* sx = smem + stage_span(smem, x + r0 * w, n_el, tid);
+  const float* sg = smem + off_g + stage_span(smem + off_g, gw + r0 * wo, n_win, tid);
+  signed char* stap = reinterpret_cast<signed char*>(smem + off_tap);
+  cp_async_wait_all();
+  __syncthreads();
+
+  Walk win(tid, wo);
+  for (int f = tid; f < n_win; f += THREADS, win.next())
+    stap[f] = (signed char)first_max_tap<K, false>(sx + win.row * w, 1, 0, win.col * s - p, w, k);
+  __syncthreads();
+
+  float* dst = out + r0 * w;
+  Walk el(tid, w);
+  for (int f = tid; f < n_el; f += THREADS, el.next())
+    dst[f] = route<S, K>(stap + el.row * wo, sg + el.row * wo, 1, 0, wo, el.col, p, k, s);
 }
 
-template <int S>
-void launch(const float* x, const float* gw, float* out, long total, int w, int wo, int k, int s,
-            int p, cudaStream_t stream) {
-  const long blocks = (total + THREADS - 1) / THREADS;
-  const int grid = (int)(blocks < (1L << 30) ? blocks : (1L << 30));
-  if (total <= (1L << 30))  // e + the grid's stride stays below 2^32
-    pool_bwd_w_kernel<unsigned, S><<<grid, THREADS, 0, stream>>>(x, gw, out, (unsigned)total, w,
-                                                                 wo, k, s, p);
-  else
-    pool_bwd_w_kernel<unsigned long long, S><<<grid, THREADS, 0, stream>>>(
-        x, gw, out, (unsigned long long)total, w, wo, k, s, p);
+template <int S, int K>
+int launch(const float* x, const float* gw, float* out, int rows, int w, int wo, int k, int s, int p,
+           int rb, int off_g, int off_tap, int smem, cudaStream_t stream) {
+  auto kernel = pool_bwd_w_kernel<S, K>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const int tiles = (rows + rb - 1) / rb;
+  kernel<<<tiles, THREADS, smem, stream>>>(x, gw, out, rows, w, wo, k, s, p, rb, off_g, off_tap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success; invalid value for
-// k > KMAX).  x, gw and out are contiguous f32.
-extern "C" int pool_bwd_w(const void* x, const void* gw, void* out, int rows, int w, int wo,
-                          int k, int s, int p, void* stream) {
-  if (rows <= 0 || w <= 0 || wo <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k)
+// k > KMAX or a plan whose shared memory is too small for its rows).  x, gw
+// and out are contiguous f32; rb rows per block, the cotangent rows at float
+// off_g and the taps at float off_tap of smem bytes of shared memory, as
+// plan_w lays them out.
+extern "C" int pool_bwd_w(const void* x, const void* gw, void* out, int rows, int w, int wo, int k,
+                          int s, int p, int rb, int off_g, int off_tap, int smem, void* stream) {
+  if (rows <= 0 || w <= 0 || wo <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k ||
+      rb <= 0 || off_g % 4 || off_tap % 4 || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const long total = (long)rows * w;
+  const long n_el = (long)rb * w, n_win = (long)rb * wo;
+  if (span_room(n_el) > off_g || off_g + span_room(n_win) > off_tap ||
+      4L * off_tap + n_win > smem)
+    return (int)cudaErrorInvalidValue;
   const auto* a = (const float*)x;
   const auto* b = (const float*)gw;
   auto* o = (float*)out;
   const auto st = (cudaStream_t)stream;
-  if (s == 1)
-    launch<1>(a, b, o, total, w, wo, k, s, p, st);
-  else if (s == 2)
-    launch<2>(a, b, o, total, w, wo, k, s, p, st);
-  else
-    launch<0>(a, b, o, total, w, wo, k, s, p, st);
-  return (int)cudaGetLastError();
+#define POOL_BWD_W(S, K) launch<S, K>(a, b, o, rows, w, wo, k, s, p, rb, off_g, off_tap, smem, st)
+  if (k == 3) return s == 1 ? POOL_BWD_W(1, 3) : s == 2 ? POOL_BWD_W(2, 3) : POOL_BWD_W(0, 3);
+  return s == 1 ? POOL_BWD_W(1, 0) : s == 2 ? POOL_BWD_W(2, 0) : POOL_BWD_W(0, 0);
+#undef POOL_BWD_W
 }

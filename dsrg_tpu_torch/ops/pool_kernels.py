@@ -2,10 +2,10 @@
 
 ``pool_bwd_h`` replaces ``dsrg_tpu/ops/pallas_pool.py::pool_bwd_h`` and
 ``pool_bwd_w`` replaces ``pool_bwd_w``.  Their CUDA sources are
-``csrc/pool_bwd_h.cu`` and ``csrc/pool_bwd_w.cu``; each says what bounds it
-on the H100 and what its design does about it.  Both route one 1-D max-pool
-pass's cotangent back to its input with first-max routing
-(``_route_1d``, ``pallas_pool.py:91-149``):
+``csrc/pool_bwd_h.cu`` and ``csrc/pool_bwd_w.cu`` (with ``csrc/pool_route.cuh``);
+each says what bounds it on the H100 and what its design does about it.  Both
+route one 1-D max-pool pass's cotangent back to its input with first-max
+routing (``_route_1d``, ``pallas_pool.py:91-149``):
 
     gx[j] = sum_t [(j+p-t) % s == 0, window o = (j+p-t)/s valid]
                   * [x[j] == max of window o]
@@ -15,12 +15,22 @@ with the taps summed in the order t = 0..k-1.  Tensors are NCHW: the H pass
 routes along dim 2 against the W-pooled ``yw``, the W pass along dim 3
 against the raw input.
 
+A kernel's block owns a tile that the routing never leaves and that is one
+contiguous span of each tensor: whole rows in the W pass, a band of rows of
+one plane with its halo in the H pass.  It stages the spans in shared memory,
+finds every window's first maximum once and then gathers per element.  The
+tiles are planned here (:func:`plan_h`, :func:`plan_w`) and handed to the
+kernels as integers, so that the geometry can be tested without a card.
+
 A wrapper runs the plain PyTorch version only for tensors on the CPU; a CUDA
 tensor launches the kernel, and anything else raises.
 ``pool_bwd_h.launches`` / ``pool_bwd_w.launches`` count kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +39,91 @@ from dsrg_tpu_torch._build import launch
 from dsrg_tpu_torch._device import kernel_device
 
 _F32 = torch.float32
-KMAX = 4  # the kernels' largest window (csrc/pool_bwd_*.cu); the plain versions take any
+KMAX = 4  # the kernels' largest window (csrc/pool_route.cuh); the plain versions take any
+SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90 (227 KB)
+# Shared memory a tile aims for.  Six such blocks of 256 threads are resident
+# on an SM (227 KB), and the loads of some run under the stores of others.
+# ``chip_smoke.py`` phase 4 times pool1 and pool4 at half and at twice this
+# size as well.
+TILE_BYTES = 32 * 1024
+
+
+class TilePlan(NamedTuple):
+    """How a pass is cut into blocks, and a block's shared memory: the span of
+    the pass input at float 0, of the cotangent at float ``off_g``, one byte
+    per window at float ``off_tap``, ``smem`` bytes in all."""
+
+    rows: int  # output rows per block: of a plane's band (H), of the flat row axis (W)
+    tiles: int  # bands per plane (H), blocks in all (W)
+    off_g: int
+    off_tap: int
+    smem: int
+    planes: int = 1  # H: whole planes per block where several fit (then one band)
+
+
+def span_room(n: int) -> int:
+    """Floats of shared memory for a span of ``n`` floats that starts up to 3
+    floats beyond a 16-byte boundary: a multiple of 4."""
+    return (n + 3 + 3) // 4 * 4
+
+
+def _layout(rows: int, tiles: int, n_in: int, n_win: int) -> TilePlan:
+    off_g = span_room(n_in)
+    off_tap = off_g + span_room(n_win)
+    return TilePlan(rows, tiles, off_g, off_tap, 4 * off_tap + (n_win + 15) // 16 * 16)
+
+
+def h_band(b: int, jb: int, h: int, ho: int, k: int, s: int, p: int):
+    """Band ``b`` of ``jb`` rows of a plane of ``h``: its rows [j0, j1), the
+    rows [y_lo, y_hi) of the pass input that their windows read and the
+    windows [o_lo, o_hi) that reach them (``band_of`` in csrc/pool_bwd_h.cu)."""
+    j0, j1 = b * jb, min(b * jb + jb, h)
+    y_lo, y_hi = max(j0 - (k - 1), 0), min(j1 + (k - 1), h)
+    o_lo = -(-max(j0 + p - (k - 1), 0) // s)
+    o_hi = max(min((j1 - 1 + p) // s + 1, ho), o_lo)
+    return j0, j1, y_lo, y_hi, o_lo, o_hi
+
+
+def _plan_h_bands(jb: int, h: int, wo: int, ho: int, k: int, s: int, p: int) -> TilePlan:
+    n_bands = -(-h // jb)
+    bands = [h_band(b, jb, h, ho, k, s, p) for b in range(n_bands)]
+    return _layout(jb, n_bands, max(y_hi - y_lo for _, _, y_lo, y_hi, _, _ in bands) * wo,
+                   max(o_hi - o_lo for *_, o_lo, o_hi in bands) * wo)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_h(n: int, h: int, wo: int, ho: int, k: int, s: int, p: int,
+           tile_bytes: int = TILE_BYTES) -> TilePlan:
+    """Tiles of the H pass over ``n`` planes (h, wo) -> (ho, wo): the fewest
+    bands whose shared memory stays within ``tile_bytes``, of equal height
+    but for the last (a band of one row where even that is larger); where a
+    whole plane fits, as many planes as fit (their rows are one span as long
+    as every window reaches into its plane, as Caffe's do)."""
+    jb = next((j for j in range(h, 1, -1) if _plan_h_bands(j, h, wo, ho, k, s, p).smem <= tile_bytes), 1)
+    plan = _plan_h_bands(-(-h // -(-h // jb)), h, wo, ho, k, s, p)
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"pool_bwd_h: one row of {wo} floats with its windows needs {plan.smem} "
+                         f"bytes of shared memory, over the card's {SMEM_MAX}")
+    if plan.tiles == 1 and h_band(0, h, h, ho, k, s, p)[4:] == (0, ho):
+        pb = 1
+        while pb < n and _layout(h, 1, (pb + 1) * h * wo, (pb + 1) * ho * wo).smem <= tile_bytes:
+            pb += 1
+        plan = _layout(h, 1, pb * h * wo, pb * ho * wo)._replace(planes=pb)
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def plan_w(rows: int, w: int, wo: int, tile_bytes: int = TILE_BYTES) -> TilePlan:
+    """Blocks of whole rows of the W pass over ``rows`` rows w -> wo: as many
+    rows as stay within ``tile_bytes``, at least one."""
+    rb = max(min(tile_bytes // (4 * w + 5 * wo), rows), 1)
+    while rb > 1 and _layout(rb, 0, rb * w, rb * wo).smem > tile_bytes:
+        rb -= 1
+    plan = _layout(rb, -(-rows // rb), rb * w, rb * wo)
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"pool_bwd_w: one row of {w} floats with its windows needs {plan.smem} "
+                         f"bytes of shared memory, over the card's {SMEM_MAX}")
+    return plan
 
 
 def _route_last(x: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int) -> torch.Tensor:
@@ -84,8 +178,10 @@ def _check_geometry(k: int, s: int, p: int, on_card: bool) -> None:
         raise ValueError(f"the pool kernels take windows up to {KMAX}, got k={k}")
 
 
-def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int) -> torch.Tensor:
-    """Route ``g`` along H against ``yw``; see :func:`pool_bwd_h_plain`."""
+def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int,
+               tile_bytes: int = TILE_BYTES) -> torch.Tensor:
+    """Route ``g`` along H against ``yw``; see :func:`pool_bwd_h_plain`.
+    ``tile_bytes``: the shared memory a block of the kernel aims for."""
     b, c, h, wo = yw.shape
     ho = g.shape[2]
     _check("yw", yw, (b, c, h, wo), yw.device)
@@ -95,13 +191,18 @@ def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int) -> tor
     if not on_card:
         return pool_bwd_h_plain(yw, g, k, s, p)
     out = torch.empty((b, c, h, wo), dtype=_F32, device=yw.device)
-    launch("pool_bwd_h", out, ((yw.contiguous(), g.contiguous()), (b * c, h, wo, ho, k, s, p)))
+    plan = plan_h(b * c, h, wo, ho, k, s, p, tile_bytes)
+    launch("pool_bwd_h", out, ((yw.contiguous(), g.contiguous()),
+                               (b * c, h, wo, ho, k, s, p, plan.rows, plan.planes, plan.off_g, plan.off_tap,
+                                plan.smem)))
     pool_bwd_h.launches += 1
     return out
 
 
-def pool_bwd_w(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int) -> torch.Tensor:
-    """Route ``gw`` along W against ``x``; see :func:`pool_bwd_w_plain`."""
+def pool_bwd_w(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int,
+               tile_bytes: int = TILE_BYTES) -> torch.Tensor:
+    """Route ``gw`` along W against ``x``; see :func:`pool_bwd_w_plain`.
+    ``tile_bytes``: the shared memory a block of the kernel aims for."""
     b, c, h, w = x.shape
     wo = gw.shape[3]
     _check("x", x, (b, c, h, w), x.device)
@@ -111,7 +212,9 @@ def pool_bwd_w(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int) -> tor
     if not on_card:
         return pool_bwd_w_plain(x, gw, k, s, p)
     out = torch.empty((b, c, h, w), dtype=_F32, device=x.device)
-    launch("pool_bwd_w", out, ((x.contiguous(), gw.contiguous()), (b * c * h, w, wo, k, s, p)))
+    plan = plan_w(b * c * h, w, wo, tile_bytes)
+    launch("pool_bwd_w", out, ((x.contiguous(), gw.contiguous()),
+                               (b * c * h, w, wo, k, s, p, plan.rows, plan.off_g, plan.off_tap, plan.smem)))
     pool_bwd_w.launches += 1
     return out
 

@@ -106,6 +106,74 @@ def test_pool_kernels_match_plain(cuda, h, w, k, s, p):
     assert (pk.pool_bwd_h.launches, pk.pool_bwd_w.launches) == (h0 + 1, w0 + 1)
 
 
+def _offset_view(a: np.ndarray, lead: int, dev) -> torch.Tensor:
+    """``a`` on the card as a contiguous view that starts ``lead`` floats into
+    its storage, so ``lead`` floats beyond a 16-byte boundary."""
+    flat = torch.zeros(a.size + lead, dtype=torch.float32, device=dev)
+    flat[lead:] = torch.from_numpy(a.ravel())
+    return flat[lead:].view(a.shape)
+
+
+# float cotangents: only the sum over taps in the order t = 0..k-1 gives the
+# plain version's bits (integer cotangents give them in any order).  Shapes at
+# the tiles' edges: pool1's and pool2's planes (several bands whose boundaries
+# fall inside windows, the Caffe last window overhanging, row counts that are
+# no multiple of the rows per block); with ``tile`` bytes of shared memory per
+# block instead of the default, several bands and ragged last blocks on small
+# inputs, and at 64 KB (over the 48 KB that need opting in) blocks of four
+# 41 x 41 planes, the last with two; one row; W and Wo below a warp and below
+# one 16-byte piece; a plane shorter than one band; the kernels' other
+# windows.  ``leads``: the tensors start that many floats beyond a 16-byte
+# boundary (x or yw, the cotangent); ``special`` puts NaN and +-inf into the
+# inputs (a NaN window routes nothing, -inf can be a maximum) and into the
+# cotangents.
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("h,w,k,s,p,tile,leads", [
+    (321, 321, 3, 2, 1, None, (0, 0)), (161, 161, 3, 2, 1, None, (1, 3)), (41, 41, 3, 1, 1, None, (2, 1)),
+    (41, 41, 3, 1, 1, 65536, (1, 2)), (37, 45, 3, 2, 1, 1024, (0, 0)), (38, 29, 3, 2, 1, 1024, (3, 2)),
+    (41, 41, 3, 1, 1, 1024, (1, 1)),
+    (1, 3, 3, 2, 1, None, (0, 0)), (1, 3, 3, 2, 1, None, (3, 1)), (2, 1, 3, 1, 1, None, (2, 3)),
+    (5, 7, 3, 2, 1, 128, (1, 2)), (19, 70, 3, 1, 1, 1024, (0, 3)), (23, 31, 2, 2, 0, 1024, (2, 2)),
+    (26, 33, 4, 3, 2, 1024, (3, 0)), (26, 33, 4, 3, 2, None, (0, 0)), (64, 300, 4, 1, 3, 4096, (1, 0))])
+def test_pool_kernels_route_floats_in_tap_order(cuda, h, w, k, s, p, tile, leads, special):
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.ops.pooling import _caffe_pool_geometry
+
+    ho, _ = _caffe_pool_geometry(h, k, s, p)
+    wo, _ = _caffe_pool_geometry(w, k, s, p)
+    rng = np.random.default_rng(h * w + s + special)
+    x = rng.integers(0, 3, (2, 3, h, w)).astype(np.float32)
+    yw = rng.integers(0, 3, (2, 3, h, wo)).astype(np.float32)
+    if special:
+        for a in (x, yw):
+            a[rng.random(a.shape) < 0.05] = np.nan
+            a[rng.random(a.shape) < 0.1] = np.inf
+            a[rng.random(a.shape) < 0.3] = -np.inf
+    g = rng.normal(size=(2, 3, ho, wo)).astype(np.float32)
+    gw = rng.normal(size=(2, 3, h, wo)).astype(np.float32)
+    if special:
+        for a in (g, gw):
+            a[rng.random(a.shape) < 0.02] = np.nan
+            a[rng.random(a.shape) < 0.02] = np.inf
+            a[rng.random(a.shape) < 0.02] = -np.inf
+    x, yw = _offset_view(x, leads[0], cuda), _offset_view(yw, leads[0], cuda)
+    g, gw = _offset_view(g, leads[1], cuda), _offset_view(gw, leads[1], cuda)
+    assert x.data_ptr() % 16 == 4 * leads[0] and gw.data_ptr() % 16 == 4 * leads[1]
+    more = {} if tile is None else {"tile_bytes": tile}
+    if tile is not None and tile < 8192 and h > 4:
+        assert pk.plan_h(6, h, wo, ho, k, s, p, tile).tiles > 1 and pk.plan_w(6 * h, w, wo, tile).tiles > 1
+    got_h, again_h = pk.pool_bwd_h(yw, g, k, s, p, **more), pk.pool_bwd_h(yw, g, k, s, p, **more)
+    got_w, again_w = pk.pool_bwd_w(x, gw, k, s, p, **more), pk.pool_bwd_w(x, gw, k, s, p, **more)
+    torch.cuda.synchronize()
+    ref_h, ref_w = pk.pool_bwd_h_plain(yw, g, k, s, p), pk.pool_bwd_w_plain(x, gw, k, s, p)
+    for got, again, ref in ((got_h, again_h, ref_h), (got_w, again_w, ref_w)):
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        if special:  # a routed NaN, or inf - inf where two windows meet, is NaN in both
+            assert torch.allclose(got, ref, rtol=0.0, atol=0.0, equal_nan=True)
+        else:
+            assert torch.equal(got, ref)
+
+
 def test_max_pool_train_cuda_matches_cpu(cuda):
     """The autograd pool on the card (kernels) and on the CPU (plain)."""
     from dsrg_tpu_torch.ops.pooling import caffe_max_pool_train
