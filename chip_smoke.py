@@ -14,14 +14,19 @@ Phases, each fatal on failure:
      ``spatial_exact`` plan (corner-scaled r weights), each launched twice
      for equal bits; timed beside the plain version, ``torch.bmm`` on the
      dense operands and the card's bound for the bytes the sparse kernel
-     must move; the plan's build time and that of the dense operands;
+     must move; the plan's build time and that of the dense operands; then
+     at the pseudo ground truth's shapes: one unmasked 500x375 image (130
+     tiles, fewer than the card's 132 SMs) and ``predict_masks``' CRF batch
+     (4 images on a 512x384 canvas, values masked to the images);
   4. the pool backward kernels against their plain versions at the five max
-     pools of the train step (batch 20 @ 321^2), on integer inputs full of
-     ties: with integer cotangents (the error must be 0, and ATen's routing
-     must agree), with normal-distributed cotangents (equal bits: only the
-     sum over taps in the order t = 0..k-1 gives them) and with NaN and +-inf
-     in inputs and cotangents; timed the same way, with the bytes moved, the
-     achieved GB/s, each block's shared memory, and pool1 at other tile sizes;
+     pools of the stage-1 step (batch 20 @ 321^2) and of the stage-2 step
+     (batch 10), on integer inputs full of ties: with integer cotangents
+     (the error must be 0, and ATen's routing must agree), with
+     normal-distributed cotangents (equal bits: only the sum over taps in
+     the order t = 0..k-1 gives them) and with NaN and +-inf in inputs and
+     cotangents; timed the same way, with the bytes moved, the achieved
+     GB/s, each block's shared memory, and (batch 20) pool1 at other tile
+     sizes; the kernels' line reports batch 20;
   5. the serving path: ``Predictor.predict_masks_device`` with the 21-class,
      4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
      500x375 images, in sizes mode (241, 321, 401) and in scales mode
@@ -30,12 +35,27 @@ Phases, each fatal on failure:
      calls that it never built the dense form; then the same pipeline on a small
      input on the card and on the CPU (plain versions), whose masks must
      agree;
-  6. the stage-1 train step: ``init_stage1`` + ``make_stage1_step`` with the
-     default ``Stage1Config`` (batch 20 @ 321^2, 21 classes, 4 heads, exact
-     CRF at 41^2, fp32) on a synthetic batch; 2 warm-up and 5 timed steps
+  6. the stage-1 train step, the serving predictor freed: ``init_stage1`` +
+     ``make_stage1_step`` with the default ``Stage1Config`` (batch 20 @
+     321^2, 21 classes, 4 heads, exact CRF at 41^2, fp32) on a synthetic
+     batch; 2 warm-up and 5 timed steps
      with finite losses and 5 + 5 pool kernel launches per step, one step
      under the profiler, one with the region growing timed; then one tiny
-     step from the same weights on the card and on the CPU, which must agree.
+     step from the same weights on the card and on the CPU, which must agree;
+  7. the pseudo ground truth (``tools/generate_train_gt.py``): a predictor of
+     the serving phase's net and weights, ``Predictor.predict_mask(sizes=[321],
+     restrict_labels=...)`` on 8 synthetic 500x375 images with label sets
+     (background and two classes) read back through ``CueDB``; the CRF's
+     ``auto`` engine takes the mmgrid kernels there, 11 + 11 launches per
+     image; ms/image split into host work, forward and CRF; then
+     ``predict_masks`` (crf_batch 4: 22 + 22 launches per 8 images), whose
+     masks must agree with the per-image ones; then ``predict_mask`` at
+     72x96 (exact engine) and with the mmgrid engine, card against CPU;
+  8. the stage-2 retrain step: ``init_stage2`` + ``make_stage2_step`` with
+     the default ``Stage2Config`` (batch 10 @ 321², 21 classes, 4 heads)
+     on crops of phase 7's masks with a band of ignore labels; 2 warm-up
+     and 5 timed steps with finite metrics and 5 + 5 pool launches per
+     step, one step under the profiler; a tiny step card against CPU.
 The last lines are a JSON line of kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without that line when
 there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
@@ -65,6 +85,8 @@ TRAIN_BATCH, TRAIN_STEPS = 20, 5
 POOLS = ((64, 321, 321, 2), (128, 161, 161, 2), (256, 81, 81, 2), (512, 41, 41, 1),
          (512, 41, 41, 1))
 CARD_VS_CPU_RTOL = 1e-3  # fp32 sums in other orders through a VGG step
+GT_SIZES = (321,)  # tools/generate_train_gt.py:48-54
+STAGE2_BATCH = 10
 
 
 def _smi() -> str:
@@ -145,10 +167,11 @@ def _hold(what: str, kern, plain) -> float:
     return err
 
 
-def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels) -> tuple:
+def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels, valid=None) -> tuple:
     """Each mmgrid kernel vs its plain version on a plan of ``guide`` at the
-    serving path's shapes, for each channel count.  Returns the kernels' rows
-    at C = 21 and the plan's build time in ms."""
+    serving path's shapes, for each channel count; the splat's values zero
+    outside ``valid`` (N, H, W) where given, as a masked canvas's are.
+    Returns the kernels' rows at C = 21 and the plan's build time in ms."""
     plan = tmm.MMGridPlan(guide, 80.0, 13.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -184,6 +207,8 @@ def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels) -> tuple:
     for c in channels:
         q = gc * c
         values = torch.from_numpy(rng.random((t, c, px), dtype=np.float32)).to(dev)
+        if valid is not None:
+            values = values * plan._tile_cf(plan.pad_cf(valid[:, None].float()))
         slab = torch.from_numpy(rng.standard_normal((t, nb, q), dtype=np.float32)).to(dev).bfloat16()
         u = (wr_t.float()[:, :, None, :] * values.bfloat16().float()[:, None]).bfloat16()
         u = u.reshape(t, q, px).transpose(1, 2).contiguous()
@@ -236,6 +261,18 @@ def _kernel_phase(mk, tmm, dev, rng) -> tuple:
     rows, plan_ms = _kernel_case(mk, tmm, dev, rng, "photo-like", guide, (21, 1))
     guide = torch.from_numpy(rng.integers(0, 256, (N_IMAGES, 384, 512, 3), dtype=np.uint8)).to(dev)
     _kernel_case(mk, tmm, dev, rng, "pixel-noise", guide, (21,))
+    # the pseudo ground truth's CRF: one unmasked image at its own size (a
+    # stream of its own, so that the later phases draw what they drew before)
+    one = np.random.default_rng(SEED + 1)
+    guide = torch.from_numpy(_images(one, 1, IMG_H, IMG_W)[0][None]).to(dev)
+    _kernel_case(mk, tmm, dev, one, "one 500x375 image", guide, (21,))
+    # predict_masks' CRF batch: 4 such images on the zero 512x384 canvas, masked
+    four = np.random.default_rng(SEED + 2)
+    canvas = np.zeros((4, 384, 512, 3), np.uint8)
+    canvas[:, :IMG_H, :IMG_W] = np.stack(_images(four, 4, IMG_H, IMG_W))
+    valid = torch.zeros((4, 384, 512), dtype=torch.bool, device=dev)
+    valid[:, :IMG_H, :IMG_W] = True
+    _kernel_case(mk, tmm, dev, four, "predict_masks canvas of 4", torch.from_numpy(canvas).to(dev), (21,), valid)
 
     # corner-scaled r weights: a plan of the spatial_exact path, 16x16-pixel tiles
     guide = torch.from_numpy(np.stack(_images(rng, 2, 72, 96))).to(dev)
@@ -260,10 +297,10 @@ def _with_specials(t: torch.Tensor, gen, shares) -> torch.Tensor:
     return t
 
 
-def _pool_phase(pk, pooling, dev) -> dict:
-    """pool_bwd_h / pool_bwd_w vs their plain versions at the train step's
-    five pools.  Returns each kernel's row, its times the mean per launch
-    over one step's five launches."""
+def _pool_phase(pk, pooling, dev, batch: int) -> dict:
+    """pool_bwd_h / pool_bwd_w vs their plain versions at a train step's
+    five pools at ``batch``.  Returns each kernel's row, its times the mean
+    per launch over one step's five launches."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def ints(lo, hi, shape):
@@ -281,17 +318,17 @@ def _pool_phase(pk, pooling, dev) -> dict:
         wo, pw = pooling._caffe_pool_geometry(w, 3, s, 1)
         # the library yardstick: ATen's max-pool backward on the -inf padded
         # pass input, through the indices of its own forward (first max)
-        x = ints(0, 3, (TRAIN_BATCH, c, h, w))
+        x = ints(0, 3, (batch, c, h, w))
         xp = pooling._pad_hw(x, (0, 0), pw, float("-inf"))
         yw_full, idx_w = torch.ops.aten.max_pool2d_with_indices(xp, [1, 3], [1, s])
         yw = yw_full[..., :wo].contiguous()
         ywp = pooling._pad_hw(yw, ph, (0, 0), float("-inf"))
         y_full, idx_h = torch.ops.aten.max_pool2d_with_indices(ywp, [3, 1], [s, 1])
-        g, gw = ints(-4, 5, (TRAIN_BATCH, c, ho, wo)), ints(-4, 5, (TRAIN_BATCH, c, h, wo))
+        g, gw = ints(-4, 5, (batch, c, ho, wo)), ints(-4, 5, (batch, c, h, wo))
         g_lib = torch.nn.functional.pad(g, (0, 0, 0, y_full.shape[2] - ho))
         gw_lib = torch.nn.functional.pad(gw, (0, yw_full.shape[3] - wo))
         aten_bwd = torch.ops.aten.max_pool2d_with_indices_backward
-        plans = {"pool_bwd_h": pk.plan_h(TRAIN_BATCH * c, h, wo, ho, 3, s, 1), "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo)}
+        plans = {"pool_bwd_h": pk.plan_h(batch * c, h, wo, ho, 3, s, 1), "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo)}
         # (wrapper, plain version, pass input, integer cotangent, ATen call, crop of its result)
         cases = {
             "pool_bwd_h": (pk.pool_bwd_h, pk.pool_bwd_h_plain, yw, g,
@@ -305,7 +342,7 @@ def _pool_phase(pk, pooling, dev) -> dict:
         pads = _time_ms(lambda: pooling._pad_hw(x, (0, 0), pw, float("-inf")), 20) \
             + _time_ms(lambda: pooling._pad_hw(yw, ph, (0, 0), float("-inf")), 20)
         fwd = _time_ms(lambda: pooling.caffe_max_pool_train(x, 3, s, 1), 20)
-        print(f"pool{i} forward: {fwd:.4f} ms, of which the two F.pad copies to -inf {pads:.4f} ms", flush=True)
+        print(f"pool{i} (batch {batch}) forward: {fwd:.4f} ms, of which the two F.pad copies to -inf {pads:.4f} ms", flush=True)
         forward["ms"] += fwd
         forward["pad_ms"] += pads
         for name, (wrapper, plain_fn, src, cot, lib, crop) in cases.items():
@@ -329,7 +366,7 @@ def _pool_phase(pk, pooling, dev) -> dict:
             specials = torch.allclose(sgot, sref, rtol=0.0, atol=0.0, equal_nan=True)
             n_nan = int(torch.isnan(sref).sum().item())
             ok = e == 0.0 and same and floats and specials and lib_agrees
-            print(f"pool{i} {name} (B, C, H, W) = {(TRAIN_BATCH, c, h, w)} s{s}: max_abs_err {e}, two "
+            print(f"pool{i} {name} (B, C, H, W) = {(batch, c, h, w)} s{s}: max_abs_err {e}, two "
                   f"launches equal {same}, normal cotangents equal to plain {floats}, with NaN and inf "
                   f"equal to plain {specials} ({n_nan} NaN results), ATen's routing "
                   f"{'agrees' if lib_agrees else 'differs'}: {'ok' if ok else 'FAIL'}", flush=True)
@@ -341,12 +378,12 @@ def _pool_phase(pk, pooling, dev) -> dict:
                        bound_ms=1e3 * 4 * n_floats / PEAK_BYTES,
                        # per window k compares for its first maximum, per output element up to k gathered taps
                        op_bound_ms=1e3 * (cot.numel() * 3 + src.numel() * 3) / PEAK_FP32)
-            print(f"pool{i} {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            print(f"pool{i} {name} (batch {batch}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                   f"ATen max_pool2d_with_indices_backward {row['library_ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms (bytes: {4 * n_floats / 1e6:.1f} MB; operations "
                   f"{row['op_bound_ms']:.4f} ms); {4 * n_floats / row['ms'] / 1e6:.1f} GB/s; blocks of "
                   f"{plan.rows} rows x {plan.planes} planes, {plan.smem} bytes of shared memory", flush=True)
-            if i in (1, 4):  # the largest pool and a one-band one at other tile sizes
+            if i in (1, 4) and batch == TRAIN_BATCH:  # the largest pool and a one-band one at other tile sizes
                 other = {t: _time_ms(lambda: kern(t), 20) for t in (pk.TILE_BYTES // 2, pk.TILE_BYTES * 2)}
                 print(f"pool{i} {name} at other tile sizes: "
                       + ", ".join(f"{t} bytes {ms:.4f} ms" for t, ms in other.items()), flush=True)
@@ -354,11 +391,11 @@ def _pool_phase(pk, pooling, dev) -> dict:
                 sums[name][k] += row[k]
         del x, xp, yw_full, idx_w, yw, ywp, y_full, idx_h, g, gw, g_lib, gw_lib, cases
         torch.cuda.empty_cache()
-    print(f"the pools' forward over the five pools of a step: {forward['ms']:.4f} ms, of which the "
+    print(f"the pools' forward over the five pools of a step at batch {batch}: {forward['ms']:.4f} ms, of which the "
           f"F.pad copies to -inf {forward['pad_ms']:.4f} ms", flush=True)
     rows = {}
     for name, tot in sums.items():
-        print(f"{name} over the five pools of a step: kernel {tot['ms']:.4f} ms, plain "
+        print(f"{name} over the five pools of a step at batch {batch}: kernel {tot['ms']:.4f} ms, plain "
               f"{tot['plain_ms']:.4f} ms, ATen {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
               flush=True)
         per = {k: v / len(POOLS) for k, v in tot.items()}
@@ -525,6 +562,200 @@ def _train_card_vs_cpu(rng) -> None:
         raise SystemExit("card vs CPU step: seed_pixels differ")
 
 
+def _pseudo_gt_phase(mk, predictor, cpu_pred, images, rng, out_dir: Path) -> tuple:
+    """The pseudo ground truth at full width; returns the mmgrid kernels'
+    launches and the restricted masks."""
+    import tempfile
+
+    from dsrg_tpu_torch import inference
+    from dsrg_tpu_torch.data.cues import CueDB, save_cue_db
+
+    n, m = len(images), predictor.num_classes
+    entries = {}
+    for i in range(n):
+        fg = np.sort(rng.choice(np.arange(1, m), size=2, replace=False))
+        cells = rng.integers(0, 41, (2, 5))
+        entries[i] = (fg, (np.repeat(fg, 5)[:5], cells[0], cells[1]))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        save_cue_db(str(Path(tmp) / "cues.pickle"), entries)
+        db = CueDB(str(Path(tmp) / "cues.pickle"), num_classes=m)
+        label_sets = [np.flatnonzero(db.labels(i)) for i in range(n)]
+    print(f"pseudo-GT: {n} images of {IMG_H}x{IMG_W}, sizes {GT_SIZES}, label sets "
+          f"{[ls.tolist() for ls in label_sets]}", flush=True)
+
+    # the split of a call, each part bracketed by synchronisations: the
+    # host's scipy zooms and numpy softmax, the forward (upload, net,
+    # download) and the CRF; the rest is the log, the unary's upload and the
+    # argmax's download
+    split = {"zoom": 0.0, "softmax": 0.0, "forward": 0.0, "crf": 0.0}
+    patched = {"ndzoom": "zoom", "_softmax_floor": "softmax", "CRF": "crf"}
+    originals = {name: getattr(inference, name) for name in patched}
+    fwd = predictor.scores_at_size
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t
+            return out
+        return call
+
+    predictor.predict_mask(images[0], sizes=GT_SIZES, restrict_labels=label_sets[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    predictor.scores_at_size = timed("forward", fwd)
+    for name, key in patched.items():
+        setattr(inference, name, timed(key, originals[name]))
+    masks, per_image, launches = [], [], {"mmgrid_splat": 0, "mmgrid_slice": 0}
+    try:
+        mk.dense_operands.calls = 0
+        for im, labels in zip(images, label_sets):
+            mk.splat.launches = mk.slice.launches = 0
+            t0 = time.perf_counter()
+            masks.append(predictor.predict_mask(im, sizes=GT_SIZES, restrict_labels=labels))
+            per_image.append(time.perf_counter() - t0)
+            counts = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
+            if counts != {"mmgrid_splat": 11, "mmgrid_slice": 11}:
+                raise SystemExit(f"pseudo-GT kernel launches {counts} for one image, expected 11 of each")
+            for k in launches:
+                launches[k] += counts[k]
+    finally:
+        del predictor.scores_at_size
+        for name, fn in originals.items():
+            setattr(inference, name, fn)
+    total = sum(per_image)
+    rest = total - sum(split.values())
+    print(f"main path (pseudo-GT, predict_mask): {1e3 * total / n:.2f} ms/image (per image "
+          f"{', '.join(f'{1e3 * t:.2f}' for t in per_image)}); host zooms {1e3 * split['zoom'] / n:.2f}, "
+          f"host softmax {1e3 * split['softmax'] / n:.2f}, forward {1e3 * split['forward'] / n:.2f}, CRF "
+          f"{1e3 * split['crf'] / n:.2f}, the rest (log, unary upload, mask download) {1e3 * rest / n:.2f} "
+          f"ms/image (host clock, synchronised); launches {launches}, dense_operands calls "
+          f"{mk.dense_operands.calls}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    if mk.dense_operands.calls:
+        raise SystemExit("the pseudo-GT path built the dense operands on the card")
+    for i, (im, mask, labels) in enumerate(zip(images, masks, label_sets)):
+        present = set(np.unique(mask).tolist())
+        if mask.shape != im.shape[:2] or mask.dtype != np.uint8 or not present <= set(labels.tolist()):
+            raise SystemExit(f"pseudo-GT mask {i}: {mask.shape} {mask.dtype}, labels {present} "
+                             f"outside {labels.tolist()}")
+        print(f"  image {i}: labels {sorted(present)} of {labels.tolist()}", flush=True)
+
+    # the batched path, against the per-image masks before restriction
+    free = [predictor.predict_mask(im, sizes=GT_SIZES) for im in images]
+    predictor.predict_masks(images, sizes=GT_SIZES, crf_batch=4)  # warm-up: the batch's cuDNN plans
+    torch.cuda.synchronize()
+    mk.splat.launches = mk.slice.launches = mk.dense_operands.calls = 0
+    t0 = time.perf_counter()
+    batched = predictor.predict_masks(images, sizes=GT_SIZES, crf_batch=4)
+    dt = time.perf_counter() - t0
+    counts = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
+    agree = min(float((a == b).mean()) for a, b in zip(batched, free))
+    print(f"main path (pseudo-GT, predict_masks, crf_batch 4): {1e3 * dt:.1f} ms per {n} images, "
+          f"launches {counts}, dense_operands calls {mk.dense_operands.calls}; agreement with "
+          f"predict_mask before restriction {agree:.5f}", flush=True)
+    if counts != {"mmgrid_splat": 22, "mmgrid_slice": 22} or mk.dense_operands.calls:
+        raise SystemExit(f"predict_masks launches {counts}, expected 22 of each and no dense operands")
+    if agree <= 0.99:
+        raise SystemExit("predict_masks disagrees with predict_mask")
+    for k in launches:
+        launches[k] += counts[k]
+
+    _profile("pseudo-GT, one predict_mask", lambda: predictor.predict_mask(
+        images[0], sizes=GT_SIZES, restrict_labels=label_sets[0]), out_dir / "chip_smoke_gt_profile.txt")
+
+    # card vs CPU at 72x96: "auto" takes the exact engine there, then the grid's kernels
+    small = _images(rng, 1, 72, 96)[0]
+    for engine in ("auto", "mmgrid"):
+        on_card = predictor.predict_mask(small, sizes=(41, 57), restrict_labels=label_sets[0], crf_engine=engine)
+        on_cpu = cpu_pred.predict_mask(small, sizes=(41, 57), restrict_labels=label_sets[0], crf_engine=engine)
+        agree = float((on_card == on_cpu).mean())
+        print(f"card vs CPU predict_mask 72x96, engine {engine}: agreement {agree:.5f}", flush=True)
+        if agree <= 0.99:
+            raise SystemExit(f"predict_mask ({engine}) on the card disagrees with the CPU's")
+    return launches, masks
+
+
+def _stage2_batch(images, masks, cfg, dev) -> dict:
+    """Raw uint8 BGR crops of the images and their pseudo ground truth at
+    the crop size, the last 21 rows ignored, repeated up to the batch."""
+    c = cfg.crop_size
+    x0 = (IMG_W - c) // 2
+    crops = [(im[:c, x0: x0 + c, ::-1], mask[:c, x0: x0 + c].copy()) for im, mask in zip(images, masks)]
+    crops = [crops[i % len(crops)] for i in range(cfg.batch_size)]
+    labels = np.stack([lab for _, lab in crops])
+    labels[:, c - 21:] = cfg.ignore_label
+    batch = {"images": np.stack([im for im, _ in crops]), "labels": labels}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def _stage2_phase(pk, images, masks, out_dir: Path) -> dict:
+    """The stage-2 step at full width on phase 7's pseudo ground truth;
+    returns the pool kernels' launches."""
+    from dsrg_tpu_torch.config import Stage2Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train.stage2 import init_stage2, make_stage2_step
+
+    cfg = Stage2Config(batch_size=STAGE2_BATCH)
+    model = DeepLabLargeFOV(num_classes=cfg.num_classes)
+    state = init_stage2(model, cfg)  # on the card: the default
+    step = make_stage2_step(model, cfg, state.optimizer, state.generator)
+    batch = _stage2_batch(images, masks, cfg, next(model.parameters()).device)
+    valid = batch["labels"] != cfg.ignore_label
+    print(f"stage 2: {type(model).__name__} on {next(model.parameters()).device}, batch {cfg.batch_size} "
+          f"@ {cfg.crop_size}^2, {cfg.num_classes} classes, heads {model.head_dilations}, labels "
+          f"{sorted(torch.unique(batch['labels']).tolist())}, valid pixels {valid.float().mean().item():.4f}",
+          flush=True)
+
+    def check(metrics, what):
+        vals = {k: v.item() for k, v in metrics.items()}
+        print(f"  {what}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()), flush=True)
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise SystemExit(f"stage-2 step {what}: non-finite metrics {vals}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        check(step(batch), f"warm-up step {i}")
+    torch.cuda.synchronize()
+    pk.pool_bwd_h.launches = pk.pool_bwd_w.launches = 0
+    t0 = time.perf_counter()
+    metrics = [step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {"pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches}
+    for i, m in enumerate(metrics):
+        check(m, f"timed step {i}")
+    print(f"main path (stage 2): {1e3 * dt:.1f} ms/step, {cfg.batch_size / dt:.2f} images/s over "
+          f"{TRAIN_STEPS} steps; launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if launches != {n: 5 * TRAIN_STEPS for n in launches}:
+        raise SystemExit(f"stage-2 pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each")
+    _profile("stage 2, one step", lambda: step(batch), out_dir / "chip_smoke_stage2_profile.txt")
+    del state, step, model, batch, metrics
+    torch.cuda.empty_cache()
+
+    # one tiny step from the same weights on the card and on the CPU
+    rng = np.random.default_rng(SEED)
+    cfg = Stage2Config(num_classes=6, batch_size=2, crop_size=41, mirror=False)
+    tiny = {"images": rng.integers(0, 256, (2, 41, 41, 3)).astype(np.uint8),
+            "labels": rng.integers(0, 6, (2, 41, 41)).astype(np.uint8)}
+    tiny["labels"][:, 30:] = cfg.ignore_label
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4), dropout_rate=0.0)
+        state = init_stage2(model, cfg, device=dev)  # the same seeded weights on both
+        m = make_stage2_step(model, cfg, state.optimizer, state.generator)(tiny)
+        out[dev] = {k: v.item() for k, v in m.items()}
+    print(f"card vs CPU stage-2 step: card {out['cuda']}, CPU {out['cpu']}", flush=True)
+    for key, b in out["cpu"].items():
+        if not abs(out["cuda"][key] - b) <= CARD_VS_CPU_RTOL * abs(b):
+            raise SystemExit(f"card vs CPU stage-2 step: {key} {out['cuda'][key]} vs {b}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -558,7 +789,8 @@ def main() -> int:
             print(f"  {name}: {line}", flush=True)
 
     rows, plan_ms = _kernel_phase(mk, tmm, dev, rng)
-    rows.update(_pool_phase(pk, pooling, dev))
+    rows.update(_pool_phase(pk, pooling, dev, TRAIN_BATCH))  # the stage-1 step's: the kernels' line
+    _pool_phase(pk, pooling, dev, STAGE2_BATCH)
 
     model = DeepLabLargeFOV(num_classes=21)
     params = _weights(model, rng)
@@ -610,6 +842,19 @@ def main() -> int:
 
     launches.update(_train_phase(pk, rng, out_dir))
     _train_card_vs_cpu(rng)
+
+    # the pseudo ground truth: a predictor of the same net and weights, as
+    # generate_train_gt.py makes one from the stage-1 snapshot
+    predictor = Predictor(DeepLabLargeFOV(num_classes=21), params, num_classes=21, device="cuda")
+    cpu_pred = Predictor(DeepLabLargeFOV(num_classes=21), params, num_classes=21, device="cpu")
+    gt_launches, gt_masks = _pseudo_gt_phase(mk, predictor, cpu_pred, images, rng, out_dir)
+    for k, v in gt_launches.items():
+        launches[k] += v
+    predictor.close()
+    del predictor, cpu_pred
+    torch.cuda.empty_cache()
+    for k, v in _stage2_phase(pk, images, gt_masks, out_dir).items():
+        launches[k] += v
 
     kernels = [
         {"name": "mmgrid_splat", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_splat.cu",

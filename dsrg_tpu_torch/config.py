@@ -1,6 +1,7 @@
-"""Stage-1 recipe configuration: the port's own copy of
-``dsrg_tpu/config.py::Stage1Config``, with the same fields and defaults
-(``solver-s.prototxt`` + ``train-s.prototxt``)."""
+"""Recipe configurations: the port's own copies of
+``dsrg_tpu/config.py::Stage1Config`` and ``Stage2Config``, with the same
+fields and defaults (``solver-s.prototxt`` + ``train-s.prototxt`` for stage
+1, ``solver-f.prototxt`` + ``train-f.prototxt`` for stage 2)."""
 
 from __future__ import annotations
 
@@ -41,3 +42,30 @@ class Stage1Config:
     seed: int = 0                    # solver random_seed
 
     compute_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage2Config:
+    """Retraining on pseudo ground truth, solver-f + train-f parity.
+
+    ``fast_dropout_rng`` has no effect in the port, as in ``Stage1Config``.
+    """
+
+    num_classes: int = 21
+    batch_size: int = 10             # train-f.prototxt:11
+    crop_size: int = 321
+    ignore_label: int = 255
+    shrink_factor: int = 8           # Interp layer (train-f.prototxt:727)
+    mirror: bool = True
+
+    base_lr: float = 1e-3            # solver-f.prototxt:5-7
+    power: float = 0.9
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    clip_gradients: float = 0.0      # Caffe solver clip_gradients (0 = off)
+    max_iter: int = 20000
+    snapshot_every: int = 10000
+    seed: int = 0
+
+    compute_dtype: str = "float32"
+    fast_dropout_rng: bool = True    # no effect in the port (see Stage1Config)

@@ -28,24 +28,25 @@ import numpy as np
 import torch
 
 from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
-from dsrg_tpu_torch.ops.crf.grid import separable_gaussian_filter_cf
+from dsrg_tpu_torch.ops.crf.grid import gaussian_axes, separable_gaussian_filter_cf
 
 _F32 = torch.float32
 _BF16 = torch.bfloat16
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
-# radius-2 discrete Gaussian in cell units (cell size == sigma)
-_BLUR_W = np.exp(-0.5 * np.arange(3) ** 2).astype(np.float32)
+_BLUR_RADIUS = 2  # of the discrete Gaussian in cell units (cell size == sigma)
 
 
-def _shift_blur(g: torch.Tensor, dim: int, step: int = 1) -> torch.Tensor:
+def _shift_blur(g: torch.Tensor, dim: int, step: int = 1, band: torch.Tensor | None = None) -> torch.Tensor:
     """Radius-2 Gaussian along ``dim`` in strides of ``step`` elements, zero
     boundary.  ``step > 1`` blurs an axis folded inside ``dim`` (the r axis
     inside the trailing gc*C dim).  One banded matrix product per axis: a
-    single pass over the grid, where the shift-add form takes a dozen."""
+    single pass over the grid, where the shift-add form takes a dozen.
+    ``band``: the axis's :func:`_blur_band`, when the caller holds it."""
     shape = g.shape
     d = shape[dim] // step
     x = g.reshape(math.prod(shape[:dim]), d, step * math.prod(shape[dim + 1:]))
-    band = torch.as_tensor(_blur_band(d), device=g.device)
+    if band is None:
+        band = _blur_band(d, g.device)
     return torch.matmul(band, x).reshape(shape)
 
 
@@ -61,13 +62,12 @@ def _half_cell_matrix(n_nodes: int, n_half: int) -> np.ndarray:
     return b
 
 
-def _blur_band(n: int) -> np.ndarray:
-    """(n, n) banded matrix form of ``_shift_blur`` (zero boundary)."""
-    d = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
-    out = np.zeros((n, n), np.float32)
-    for k, wk in enumerate(_BLUR_W):
-        out[d == k] = wk
-    return out
+def _blur_band(n: int, device) -> torch.Tensor:
+    """(n, n) banded matrix form of ``_shift_blur`` (zero boundary), built on
+    ``device``: weights exp(-0.5 d^2) in fp64, rounded once to fp32."""
+    i = torch.arange(n, device=device)
+    d = (i[:, None] - i[None, :]).abs()
+    return torch.exp(-0.5 * d.double() ** 2).masked_fill(d > _BLUR_RADIUS, 0.0).float()
 
 
 class MMGridPlan:
@@ -93,6 +93,8 @@ class MMGridPlan:
         self.nty, self.ntx, self.gy, self.gx, self.gc = nty, ntx, gy, gx, gc
         self.hp, self.wp = hp, wp
         self.n_tiles = nty * ntx
+        # every axis the grid blurs, by length: built once per plan on the device
+        self.bands = {d: _blur_band(d, dev) for d in {gy, gx, gc}}
         self.tile_px = ts * ts
 
         img = torch.round(guide.to(_F32))
@@ -127,8 +129,8 @@ class MMGridPlan:
             self.by = torch.as_tensor(by, device=dev)  # (nty, gy) slice-side up-resample
             self.bx = torch.as_tensor(bx, device=dev)
             # splat-side down-resample with the spatial blur folded in
-            self.dy = torch.as_tensor(_blur_band(gy) @ by.T, device=dev)  # (gy, nty)
-            self.dx = torch.as_tensor(_blur_band(gx) @ bx.T, device=dev)  # (gx, ntx)
+            self.dy = self.bands[gy] @ self.by.T  # (gy, nty)
+            self.dx = self.bands[gx] @ self.bx.T  # (gx, ntx)
 
     def dense_operands(self, wr2: torch.Tensor | None = None):
         """The dense ``wbg`` (N*T, px, gc^2) and ``wr_t`` (N*T, gc, px) bf16
@@ -164,8 +166,8 @@ class MMGridPlan:
     def _color_blur(self, g: torch.Tensor, c: int, first_dim: int) -> torch.Tensor:
         """Blur (N, gy, gx, gc, gc, gc*C) along dims first_dim..4, then r."""
         for dim in range(first_dim, 5):
-            g = _shift_blur(g, dim)
-        return _shift_blur(g, 5, step=c)
+            g = _shift_blur(g, dim, band=self.bands[g.shape[dim]])
+        return _shift_blur(g, 5, step=c, band=self.bands[self.gc])
 
     def filter_cf(self, values: torch.Tensor) -> torch.Tensor:
         """Approximate K @ values: (N, C, H, W) f32 -> (N, C, H, W) f32."""
@@ -234,6 +236,7 @@ def mean_field_mmgrid(
     n, h, w, _ = unary.shape
     plan = MMGridPlan(image, 80.0 / scale_factor, color_factor, spatial_exact)
     s_g = 3.0 / scale_factor
+    spatial = gaussian_axes(h, w, s_g, unary.device)
 
     unary_cf = unary.to(_F32).permute(0, 3, 1, 2)
     if valid_mask is None:
@@ -241,13 +244,13 @@ def mean_field_mmgrid(
     else:
         mask = valid_mask.to(_F32)[:, None]
     norm_b = torch.rsqrt(plan.filter_cf(mask) + 1e-20)
-    norm_s = torch.rsqrt(separable_gaussian_filter_cf(mask, s_g) + 1e-20)
+    norm_s = torch.rsqrt(separable_gaussian_filter_cf(mask, s_g, axes=spatial) + 1e-20)
 
     q = torch.softmax(unary_cf, dim=1)
     for _ in range(n_iters):
         qm = q * mask
         mb = norm_b * plan.filter_cf(norm_b * qm)
-        ms = norm_s * separable_gaussian_filter_cf(norm_s * qm, s_g)
+        ms = norm_s * separable_gaussian_filter_cf(norm_s * qm, s_g, axes=spatial)
         q = torch.softmax(unary_cf + (w_bilateral * mb + w_spatial * ms) * mask, dim=1)
     q = q.permute(0, 2, 3, 1)
     return q[0] if single else q

@@ -208,3 +208,93 @@ def test_mean_field_cuda_matches_cpu(cuda):
                                 valid_mask=args[2].to(cuda)).cpu()
     assert (got - ref).abs().max().item() <= 1e-4
     assert (got.argmax(-1) == ref.argmax(-1)).float().mean().item() == 1.0
+
+
+def test_mmgrid_one_unmasked_image(cuda):
+    """The pseudo ground truth's CRF: one 500x375 image, no mask (130 tiles
+    of 1600 pixels, fewer blocks than the card's SMs).  The kernels against
+    their plain versions on that plan, and the whole mean field on a smaller
+    unmasked image, card against CPU."""
+    rng = np.random.default_rng(3)
+    guide = np.zeros((1, 375, 500, 3), np.uint8)
+    guide[:, :, :250] = [200, 60, 50]
+    guide[:, 100:300, 250:] = [30, 180, 190]
+    guide = np.clip(guide + rng.integers(-12, 12, guide.shape), 0, 255).astype(np.uint8)
+    plan = tmm.MMGridPlan(torch.from_numpy(guide).to(cuda), 80.0, 13.0)
+    assert plan.idx.shape == (130, 1600) and plan.gc == 21
+    sparse = (plan.idx, plan.wbg4, plan.wr2_bf16)
+    for c in (21, 1):
+        values = torch.from_numpy(rng.random((130, c, 1600), dtype=np.float32)).to(cuda)
+        slab = torch.from_numpy(rng.standard_normal((130, 441, 21 * c), dtype=np.float32)).to(cuda).bfloat16()
+        for kernel, plain, x, more in ((mk.splat, mk.splat_plain, values, (plan.perm,)),
+                                      (mk.slice, mk.slice_plain, slab, ())):
+            got, ref = kernel(*sparse, x, 21, *more), plain(*sparse, x, 21)
+            assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+    image = torch.from_numpy(guide[0, :130, 200:370].copy())
+    unary = torch.log(torch.from_numpy(rng.dirichlet(np.ones(5), size=(130, 170)).astype(np.float32)))
+    calls, launches = mk.dense_operands.calls, mk.splat.launches
+    got = tmm.mean_field_mmgrid(unary.to(cuda), image.to(cuda), 10).cpu()
+    assert mk.dense_operands.calls == calls and mk.splat.launches == launches + 11
+    ref = tmm.mean_field_mmgrid(unary, image, 10)
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert (got.argmax(-1) == ref.argmax(-1)).float().mean().item() == 1.0
+
+
+def _small_predictors(cuda):
+    from dsrg_tpu_torch.inference import Predictor
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train.stage1 import init_params
+
+    model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4))
+    init_params(model, 0)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    return [Predictor(DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4)), params, num_classes=6,
+                      device=dev) for dev in (cuda, "cpu")]
+
+
+@pytest.mark.parametrize("engine", ["auto", "mmgrid"])
+def test_predict_mask_card_matches_cpu(cuda, engine):
+    """``predict_mask`` with restricted labels on a 72x96 image: "auto" takes
+    the exact engine there (6912 px), "mmgrid" the kernels."""
+    on_card, on_cpu = _small_predictors(cuda)
+    rng = np.random.default_rng(4)
+    image = np.zeros((72, 96, 3), np.uint8)
+    image[:, :48] = [200, 60, 50]
+    image[20:60, 48:] = [30, 180, 190]
+    image = np.clip(image + rng.integers(-10, 10, image.shape), 0, 255).astype(np.uint8)
+    launches = mk.splat.launches
+    for restrict in (None, [0, 2, 5]):
+        a = on_card.predict_mask(image, sizes=[41, 57], restrict_labels=restrict, crf_engine=engine)
+        b = on_cpu.predict_mask(image, sizes=[41, 57], restrict_labels=restrict, crf_engine=engine)
+        assert a.shape == image.shape[:2] and a.dtype == np.uint8
+        assert (a == b).mean() > 0.99
+        if restrict is not None:
+            assert set(np.unique(a)) <= set(restrict)
+    assert mk.splat.launches - launches == (0 if engine == "auto" else 22)
+
+
+def test_stage2_step_card_matches_cpu(cuda):
+    """One tiny stage-2 step from the same weights on the card (pool
+    kernels) and on the CPU (plain versions)."""
+    from dsrg_tpu_torch.config import Stage2Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.train.stage2 import init_stage2, make_stage2_step
+
+    rng = np.random.default_rng(5)
+    cfg = Stage2Config(num_classes=6, batch_size=2, crop_size=41, mirror=False)
+    images = rng.integers(0, 256, (2, 41, 41, 3)).astype(np.uint8)
+    labels = rng.integers(0, 6, (2, 41, 41)).astype(np.uint8)
+    labels[:, 30:] = 255
+    out = {}
+    for dev in (cuda, "cpu"):
+        model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4), dropout_rate=0.0)
+        state = init_stage2(model, cfg, device=dev)
+        h0 = pk.pool_bwd_h.launches
+        m = make_stage2_step(model, cfg, state.optimizer, state.generator)(
+            {"images": images, "labels": labels})
+        out[str(dev)] = {k: v.item() for k, v in m.items()}
+        assert pk.pool_bwd_h.launches - h0 == (5 if dev == cuda else 0)
+    for key, v in out["cpu"].items():
+        assert abs(out["cuda"][key] - v) <= 1e-3 * abs(v), key
