@@ -26,7 +26,11 @@ Phases, each fatal on failure:
      the order t = 0..k-1 gives them) and with NaN and +-inf in inputs and
      cotangents; timed the same way, with the bytes moved, the achieved
      GB/s, each block's shared memory, and (batch 20) pool1 at other tile
-     sizes; the kernels' line reports batch 20;
+     sizes; the kernels' line reports batch 20; then the same checks and
+     times for the kernels' bfloat16 versions (bf16 inputs and cotangents,
+     bits equal to the plain versions, which round after every add), and
+     each pool's forward with implicit padding beside the former form that
+     padded two -inf copies;
   5. the serving path: ``Predictor.predict_masks_device`` with the 21-class,
      4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
      500x375 images, in sizes mode (241, 321, 401) and in scales mode
@@ -55,8 +59,24 @@ Phases, each fatal on failure:
      the default ``Stage2Config`` (batch 10 @ 321², 21 classes, 4 heads)
      on crops of phase 7's masks with a band of ignore labels; 2 warm-up
      and 5 timed steps with finite metrics and 5 + 5 pool launches per
-     step, one step under the profiler; a tiny step card against CPU.
-The last lines are a JSON line of kernels, the card's name and power limit,
+     step, one step under the profiler; a tiny step card against CPU;
+  9. the precisions: the stage-1 step (batch 20) and the stage-2 step
+     (batch 10) at full width in fp32 with TF32 off, in fp32 with TF32 on
+     (cuDNN and matmul) and in bfloat16 (``DeepLabLargeFOV(compute_dtype=
+     torch.bfloat16)``, ``compute_dtype="bfloat16"``, stage 1 with
+     ``crf_fast=True``): ms/step, images/s, peak memory, the pool kernels'
+     launches by element type and a profile of one step each; a served
+     chunk of 8 in sizes mode with a bf16 model; a tiny bf16 step card
+     against CPU; TF32 off again after it;
+  10. the learning check (``dsrg_tpu/tools/synth_check.py`` in memory): the
+     ``easy`` synthetic set at 321 (64 train, 16 val images, seed 0, cues in
+     the reference's pickle through ``save_cue_db`` / ``CueDB``), stage 1
+     from ``init_stage1`` for 300 iterations at batch 8, val masks from
+     ``predict_masks_device(sizes=[321], smooth=False)``, scored by the
+     reference's quirk mIoU and the honest ``miou3``; once in fp32 (TF32
+     off), once in bf16 with ``crf_fast=True``; fatal if either ``miou3`` is
+     below 0.5.
+Each phase prints its wall time, and the script its total.  The last lines are a JSON line of kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without that line when
 there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
 """
@@ -80,11 +100,20 @@ PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (data sheet)
 PEAK_FP32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = 1e-5  # x max|plain|: the kernels differ from the plain versions in fp32 summation order only
+BF16 = torch.bfloat16
 TRAIN_BATCH, TRAIN_STEPS = 20, 5
 # (channels, H, W, stride) of the five 3x3 pad-1 MAX pools at 321^2
 POOLS = ((64, 321, 321, 2), (128, 161, 161, 2), (256, 81, 81, 2), (512, 41, 41, 1),
          (512, 41, 41, 1))
 CARD_VS_CPU_RTOL = 1e-3  # fp32 sums in other orders through a VGG step
+# bf16 rounds at other places on the card than on the CPU: the tiny step's
+# metrics in bf16 sit within 1e-3 of the fp32 step's on the CPU, and the
+# constrain term (~1e-3 of the loss) is held on the loss's scale
+BF16_CARD_VS_CPU_RTOL = 1e-2
+# the learning check (dsrg_tpu/tools/synth_check.py: 64 / 16 images, 300
+# iterations at batch 8, the bar of a working DSRG stack)
+LEARN_TRAIN, LEARN_VAL, LEARN_ITERS, LEARN_BATCH, LEARN_MIOU = 64, 16, 300, 8, 0.5
+LEARN_SIZE = 321  # image, crop and prediction size; cues on its (size - 1) / 8 + 1 grid
 GT_SIZES = (321,)  # tools/generate_train_gt.py:48-54
 STAGE2_BATCH = 10
 
@@ -103,7 +132,8 @@ def _ptxas_summary(log: str) -> list:
     for entry, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=ptxas info\s*: Compil|\Z)", log, re.S):
         kernel = re.search(r"\d+([a-z_]+_kernel)(.*)", entry)
         name, rest = (kernel.group(1), kernel.group(2)) if kernel else (entry, "")
-        targs = ",".join(re.findall(r"L[ib](\d+)E", rest.split("Ev")[0]))
+        targs = ",".join((["bf16" if "bfloat16" in rest else "f32"] if "_kernelI" in entry and "pool" in name
+                          else []) + re.findall(r"L[ib](\d+)E", rest.split("Ev")[0]))
         used = re.search(r"Used (\d+) registers", body)
         smem = re.search(r"(\d+) bytes smem", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
@@ -297,22 +327,33 @@ def _with_specials(t: torch.Tensor, gen, shares) -> torch.Tensor:
     return t
 
 
-def _pool_phase(pk, pooling, dev, batch: int) -> dict:
+def _former_forward(pooling, x, k, s, p):
+    """The pool's train forward as the port ran it before implicit padding:
+    each pass on a copy padded with -inf, then cropped."""
+    oh, ph = pooling._caffe_pool_geometry(x.shape[2], k, s, p)
+    ow, pw = pooling._caffe_pool_geometry(x.shape[3], k, s, p)
+    yw = torch.nn.functional.max_pool2d(pooling._pad_hw(x, (0, 0), pw, float("-inf")), (1, k), (1, s))[..., :ow]
+    return torch.nn.functional.max_pool2d(pooling._pad_hw(yw, ph, (0, 0), float("-inf")), (k, 1), (s, 1))[:, :, :oh]
+
+
+def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32) -> dict:
     """pool_bwd_h / pool_bwd_w vs their plain versions at a train step's
-    five pools at ``batch``.  Returns each kernel's row, its times the mean
-    per launch over one step's five launches."""
+    five pools at ``batch`` in ``dtype`` (float32 or bfloat16, the kernels'
+    two element types).  Returns each kernel's row, its times the mean per
+    launch over one step's five launches."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sfx, elem = pk.ENTRY_SUFFIX[dtype], torch.empty((), dtype=dtype).element_size()
 
     def ints(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev).float()
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).to(dtype)
 
     def normal(shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "op_bound_ms")
     sums = {n: dict.fromkeys(keys, 0.0) for n in ("pool_bwd_h", "pool_bwd_w")}
     err = {n: 0.0 for n in sums}
-    forward = {"ms": 0.0, "pad_ms": 0.0}
+    forward = {"ms": 0.0, "former_ms": 0.0, "pad_ms": 0.0}
     for i, (c, h, w, s) in enumerate(POOLS, 1):
         ho, ph = pooling._caffe_pool_geometry(h, 3, s, 1)
         wo, pw = pooling._caffe_pool_geometry(w, 3, s, 1)
@@ -328,7 +369,8 @@ def _pool_phase(pk, pooling, dev, batch: int) -> dict:
         g_lib = torch.nn.functional.pad(g, (0, 0, 0, y_full.shape[2] - ho))
         gw_lib = torch.nn.functional.pad(gw, (0, yw_full.shape[3] - wo))
         aten_bwd = torch.ops.aten.max_pool2d_with_indices_backward
-        plans = {"pool_bwd_h": pk.plan_h(batch * c, h, wo, ho, 3, s, 1), "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo)}
+        plans = {"pool_bwd_h": pk.plan_h(batch * c, h, wo, ho, 3, s, 1, pk.TILE_BYTES, elem),
+                 "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo, pk.TILE_BYTES, elem)}
         # (wrapper, plain version, pass input, integer cotangent, ATen call, crop of its result)
         cases = {
             "pool_bwd_h": (pk.pool_bwd_h, pk.pool_bwd_h_plain, yw, g,
@@ -338,12 +380,18 @@ def _pool_phase(pk, pooling, dev, batch: int) -> dict:
                            lambda: aten_bwd(gw_lib, xp, [1, 3], [1, s], [0, 0], [1, 1], False, idx_w),
                            lambda out: out[..., pw[0]: pw[0] + w]),
         }
-        # the forward of the same pool: two library max pools, each on a copy padded with -inf
+        # the forward of the same pool: two library max pools with implicit
+        # padding, beside the former form on -inf padded copies
+        fwd = _time_ms(lambda: pooling.caffe_max_pool_train(x, 3, s, 1), 20)
+        former = _time_ms(lambda: _former_forward(pooling, x, 3, s, 1), 20)
         pads = _time_ms(lambda: pooling._pad_hw(x, (0, 0), pw, float("-inf")), 20) \
             + _time_ms(lambda: pooling._pad_hw(yw, ph, (0, 0), float("-inf")), 20)
-        fwd = _time_ms(lambda: pooling.caffe_max_pool_train(x, 3, s, 1), 20)
-        print(f"pool{i} (batch {batch}) forward: {fwd:.4f} ms, of which the two F.pad copies to -inf {pads:.4f} ms", flush=True)
+        if not torch.equal(pooling.caffe_max_pool_train(x, 3, s, 1), _former_forward(pooling, x, 3, s, 1)):
+            raise SystemExit(f"pool{i}: the implicitly padded forward differs from the padded copies' form")
+        print(f"pool{i} (batch {batch}, {dtype}) forward: {fwd:.4f} ms with implicit padding; the former "
+              f"form {former:.4f} ms, of which its two F.pad copies to -inf {pads:.4f} ms", flush=True)
         forward["ms"] += fwd
+        forward["former_ms"] += former
         forward["pad_ms"] += pads
         for name, (wrapper, plain_fn, src, cot, lib, crop) in cases.items():
             def kern(tile_bytes=pk.TILE_BYTES):
@@ -352,13 +400,15 @@ def _pool_phase(pk, pooling, dev, batch: int) -> dict:
             def plain():
                 return plain_fn(src, cot, 3, s, 1)
 
-            plan, n_floats = plans[name], 2 * src.numel() + cot.numel()
+            label = name + sfx
+            plan, n_bytes = plans[name], elem * (2 * src.numel() + cot.numel())
             got, again, ref, lib_out = kern(), kern(), plain(), crop(lib())
             torch.cuda.synchronize()
-            e = (got - ref).abs().max().item()
+            e = (got.float() - ref.float()).abs().max().item()
             lib_agrees, same = torch.equal(got, lib_out), torch.equal(got, again)
-            # normal cotangents: the plain version's bits need its order of summation;
-            # then NaN and +-inf in the input (5%, 10%, 30%) and in the cotangent (2% each)
+            # normal cotangents: the plain version's bits need its order of summation
+            # (and, in bf16, its rounding after every add); then NaN and +-inf in the
+            # input (5%, 10%, 30%) and in the cotangent (2% each)
             fcot = normal(cot.shape)
             floats = torch.equal(wrapper(src, fcot, 3, s, 1), plain_fn(src, fcot, 3, s, 1))
             ssrc, scot = _with_specials(src, gen, (0.05, 0.1, 0.3)), _with_specials(fcot, gen, (0.02, 0.02, 0.02))
@@ -366,24 +416,25 @@ def _pool_phase(pk, pooling, dev, batch: int) -> dict:
             specials = torch.allclose(sgot, sref, rtol=0.0, atol=0.0, equal_nan=True)
             n_nan = int(torch.isnan(sref).sum().item())
             ok = e == 0.0 and same and floats and specials and lib_agrees
-            print(f"pool{i} {name} (B, C, H, W) = {(batch, c, h, w)} s{s}: max_abs_err {e}, two "
+            print(f"pool{i} {label} (B, C, H, W) = {(batch, c, h, w)} s{s}: max_abs_err {e}, two "
                   f"launches equal {same}, normal cotangents equal to plain {floats}, with NaN and inf "
                   f"equal to plain {specials} ({n_nan} NaN results), ATen's routing "
                   f"{'agrees' if lib_agrees else 'differs'}: {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                raise SystemExit(f"{name} disagrees with its plain version or with ATen at pool{i}")
+                raise SystemExit(f"{label} disagrees with its plain version or with ATen at pool{i}")
             err[name] = max(err[name], e)
             del got, again, ref, lib_out, fcot, ssrc, scot, sgot, sref
             row = dict(ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 3), library_ms=_time_ms(lib, 20),
-                       bound_ms=1e3 * 4 * n_floats / PEAK_BYTES,
+                       bound_ms=1e3 * n_bytes / PEAK_BYTES,
                        # per window k compares for its first maximum, per output element up to k gathered taps
                        op_bound_ms=1e3 * (cot.numel() * 3 + src.numel() * 3) / PEAK_FP32)
-            print(f"pool{i} {name} (batch {batch}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            print(f"pool{i} {label} (batch {batch}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                   f"ATen max_pool2d_with_indices_backward {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms (bytes: {4 * n_floats / 1e6:.1f} MB; operations "
-                  f"{row['op_bound_ms']:.4f} ms); {4 * n_floats / row['ms'] / 1e6:.1f} GB/s; blocks of "
+                  f"{row['bound_ms']:.4f} ms (bytes: {n_bytes / 1e6:.1f} MB; operations "
+                  f"{row['op_bound_ms']:.4f} ms); {n_bytes / row['ms'] / 1e6:.1f} GB/s; blocks of "
                   f"{plan.rows} rows x {plan.planes} planes, {plan.smem} bytes of shared memory", flush=True)
-            if i in (1, 4) and batch == TRAIN_BATCH:  # the largest pool and a one-band one at other tile sizes
+            if i in (1, 4) and batch == TRAIN_BATCH and dtype == torch.float32:
+                # the largest pool and a one-band one at other tile sizes
                 other = {t: _time_ms(lambda: kern(t), 20) for t in (pk.TILE_BYTES // 2, pk.TILE_BYTES * 2)}
                 print(f"pool{i} {name} at other tile sizes: "
                       + ", ".join(f"{t} bytes {ms:.4f} ms" for t, ms in other.items()), flush=True)
@@ -391,18 +442,19 @@ def _pool_phase(pk, pooling, dev, batch: int) -> dict:
                 sums[name][k] += row[k]
         del x, xp, yw_full, idx_w, yw, ywp, y_full, idx_h, g, gw, g_lib, gw_lib, cases
         torch.cuda.empty_cache()
-    print(f"the pools' forward over the five pools of a step at batch {batch}: {forward['ms']:.4f} ms, of which the "
-          f"F.pad copies to -inf {forward['pad_ms']:.4f} ms", flush=True)
+    print(f"the pools' forward over the five pools of a step at batch {batch} in {dtype}: {forward['ms']:.4f} ms "
+          f"with implicit padding; the former form {forward['former_ms']:.4f} ms, of which the F.pad copies to "
+          f"-inf {forward['pad_ms']:.4f} ms", flush=True)
     rows = {}
     for name, tot in sums.items():
-        print(f"{name} over the five pools of a step at batch {batch}: kernel {tot['ms']:.4f} ms, plain "
+        print(f"{name + sfx} over the five pools of a step at batch {batch}: kernel {tot['ms']:.4f} ms, plain "
               f"{tot['plain_ms']:.4f} ms, ATen {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
               flush=True)
         per = {k: v / len(POOLS) for k, v in tot.items()}
         bound_by = "bytes" if per["bound_ms"] >= per["op_bound_ms"] else "operations"
-        rows[name] = dict(max_abs_err=err[name], ms=per["ms"], plain_ms=per["plain_ms"],
-                          bound_ms=max(per["bound_ms"], per["op_bound_ms"]), bound_by=bound_by,
-                          library_ms=per["library_ms"])
+        rows[name + sfx] = dict(max_abs_err=err[name], ms=per["ms"], plain_ms=per["plain_ms"],
+                                bound_ms=max(per["bound_ms"], per["op_bound_ms"]), bound_by=bound_by,
+                                library_ms=per["library_ms"])
     return rows
 
 
@@ -423,11 +475,13 @@ def _group(kernel: str) -> str:
     return "other"
 
 
-def _profile(title: str, fn, out_file: Path) -> None:
-    """``fn()`` once under torch.profiler: device time by kernel group."""
+def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> None:
+    """``fn()`` once under torch.profiler: device time by kernel group;
+    ``conv_shapes``: also the convolutions' device time by input shapes
+    (which layers the convolution time goes to)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=conv_shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -452,6 +506,12 @@ def _profile(title: str, fn, out_file: Path) -> None:
     kernels.sort(reverse=True)
     for ms, count, key in kernels[:12]:
         print(f"    {ms:9.2f} ms  x{count:<5d} {key[:110]}", flush=True)
+    if conv_shapes:
+        convs = sorted(((evt.device_time_total / 1e3, evt.count, evt.key, evt.input_shapes[:3])
+                        for evt in prof.key_averages(group_by_input_shape=True)
+                        if evt.key in ("aten::cudnn_convolution", "aten::convolution_backward")), reverse=True)
+        for ms, count, key, shapes in convs[:10]:
+            print(f"    {ms:9.2f} ms  x{count:<3d} {key} {shapes}", flush=True)
     out_file.parent.mkdir(parents=True, exist_ok=True)
     out_file.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
 
@@ -497,21 +557,21 @@ def _train_phase(pk, rng, out_dir: Path) -> dict:
     for i in range(2):
         check(step(batch), f"warm-up step {i}")
     torch.cuda.synchronize()
-    pk.pool_bwd_h.launches = pk.pool_bwd_w.launches = 0
+    _zero_counts(pk)
     checks0 = region_grow.dsrg_grow.checks
     t0 = time.perf_counter()
     metrics = [step(batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = {"pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches}
+    launches = _launch_counts(pk)
     checks = (region_grow.dsrg_grow.checks - checks0) / TRAIN_STEPS
     for i, m in enumerate(metrics):
         check(m, f"timed step {i}")
     print(f"main path (train): {1e3 * dt:.1f} ms/step, {cfg.batch_size / dt:.2f} images/s over "
           f"{TRAIN_STEPS} steps; launches {launches}; region-growing convergence checks "
           f"{checks:.1f}/step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if launches != {n: 5 * TRAIN_STEPS for n in launches}:
-        raise SystemExit(f"pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each")
+    if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
+        raise SystemExit(f"pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
 
     _profile("train, one step", lambda: step(batch), out_dir / "chip_smoke_train_profile.txt")
 
@@ -539,27 +599,34 @@ def _train_phase(pk, rng, out_dir: Path) -> dict:
     return launches
 
 
-def _train_card_vs_cpu(rng) -> None:
-    """One tiny step from the same weights on the card and on the CPU."""
+def _train_card_vs_cpu(rng, bf16: bool = False) -> None:
+    """One tiny step from the same weights on the card and on the CPU; with
+    ``bf16``, a bf16 model with the bf16 CRF (``crf_fast``)."""
     from dsrg_tpu_torch.config import Stage1Config
     from dsrg_tpu_torch.models import DeepLabLargeFOV
     from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
 
-    cfg = Stage1Config(num_classes=6, batch_size=2, crop_size=41, cue_size=6, crf_iters=2, mirror=False)
+    what = "bf16 step" if bf16 else "step"
+    cfg = Stage1Config(num_classes=6, batch_size=2, crop_size=41, cue_size=6, crf_iters=2, mirror=False,
+                       compute_dtype="bfloat16" if bf16 else "float32", crf_fast=bf16)
     batch = {k: v.numpy() for k, v in _train_batch(rng, cfg, "cpu").items()}
     out = {}
     for dev in ("cuda", "cpu"):
-        model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4), dropout_rate=0.0)
+        model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4), dropout_rate=0.0,
+                                compute_dtype=BF16 if bf16 else torch.float32)
         state = init_stage1(model, cfg, device=dev)  # the same seeded weights on both
         m = make_stage1_step(model, cfg, state.optimizer, state.generator)(batch)
         out[dev] = {k: v.item() for k, v in m.items()}
-    print(f"card vs CPU step: card {out['cuda']}, CPU {out['cpu']}", flush=True)
+    print(f"card vs CPU {what}: card {out['cuda']}, CPU {out['cpu']}", flush=True)
+    rtol = BF16_CARD_VS_CPU_RTOL if bf16 else CARD_VS_CPU_RTOL
     for key in ("loss", "loss_seed", "loss_constrain", "grad_norm"):
         a, b = out["cuda"][key], out["cpu"][key]
-        if not abs(a - b) <= CARD_VS_CPU_RTOL * abs(b):
-            raise SystemExit(f"card vs CPU step: {key} {a} vs {b}")
+        # in bf16 the constrain term (~1e-3 of the loss) is judged on the loss's scale
+        scale = abs(out["cpu"]["loss"]) if bf16 and key == "loss_constrain" else abs(b)
+        if not abs(a - b) <= rtol * scale:
+            raise SystemExit(f"card vs CPU {what}: {key} {a} vs {b}")
     if out["cuda"]["seed_pixels"] != out["cpu"]["seed_pixels"]:
-        raise SystemExit("card vs CPU step: seed_pixels differ")
+        raise SystemExit(f"card vs CPU {what}: seed_pixels differ")
 
 
 def _pseudo_gt_phase(mk, predictor, cpu_pred, images, rng, out_dir: Path) -> tuple:
@@ -720,19 +787,19 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> dict:
     for i in range(2):
         check(step(batch), f"warm-up step {i}")
     torch.cuda.synchronize()
-    pk.pool_bwd_h.launches = pk.pool_bwd_w.launches = 0
+    _zero_counts(pk)
     t0 = time.perf_counter()
     metrics = [step(batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / TRAIN_STEPS
-    launches = {"pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches}
+    launches = _launch_counts(pk)
     for i, m in enumerate(metrics):
         check(m, f"timed step {i}")
     print(f"main path (stage 2): {1e3 * dt:.1f} ms/step, {cfg.batch_size / dt:.2f} images/s over "
           f"{TRAIN_STEPS} steps; launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if launches != {n: 5 * TRAIN_STEPS for n in launches}:
-        raise SystemExit(f"stage-2 pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each")
+    if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
+        raise SystemExit(f"stage-2 pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
     _profile("stage 2, one step", lambda: step(batch), out_dir / "chip_smoke_stage2_profile.txt")
     del state, step, model, batch, metrics
     torch.cuda.empty_cache()
@@ -756,6 +823,237 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> dict:
     return launches
 
 
+PRECISIONS = (("fp32", False), ("tf32", True), ("bf16", False))  # (name, TF32 on)
+
+
+def _set_tf32(on: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _launch_counts(pk) -> dict:
+    return {"pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches,
+            "pool_bwd_h_bf16": pk.pool_bwd_h.launches_bf16, "pool_bwd_w_bf16": pk.pool_bwd_w.launches_bf16}
+
+
+def _zero_counts(pk) -> None:
+    pk.pool_bwd_h.launches = pk.pool_bwd_w.launches = 0
+    pk.pool_bwd_h.launches_bf16 = pk.pool_bwd_w.launches_bf16 = 0
+
+
+def _timed_steps(pk, what: str, precision: str, step, batch, n_images: int, out_dir: Path) -> dict:
+    """Two warm-up and TRAIN_STEPS timed steps of ``step``, the pool kernels'
+    launches by element type (5 + 5 per step, of the precision's type), peak
+    memory (of the warm-up, which holds cuDNN's algorithm search when the
+    precision's shapes are new, and of the timed steps) and a profile of one
+    step; returns the launches."""
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    warm_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(pk)
+    t0 = time.perf_counter()
+    metrics = [step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = _launch_counts(pk)
+    last = {k: v.item() for k, v in metrics[-1].items()}
+    if not all(np.isfinite(v) for m in metrics for v in (t.item() for t in m.values())):
+        raise SystemExit(f"{what} {precision}: non-finite metrics {last}")
+    fp32, bf16 = (0, 5 * TRAIN_STEPS) if precision == "bf16" else (5 * TRAIN_STEPS, 0)
+    expected = {"pool_bwd_h": fp32, "pool_bwd_w": fp32, "pool_bwd_h_bf16": bf16, "pool_bwd_w_bf16": bf16}
+    print(f"main path ({what}, {precision}): {1e3 * dt:.1f} ms/step, {n_images / dt:.2f} images/s over "
+          f"{TRAIN_STEPS} steps; launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (warm-up {warm_peak:.2f} GiB); last step "
+          + ", ".join(f"{k} {v:.6g}" for k, v in last.items()), flush=True)
+    if launches != expected:
+        raise SystemExit(f"{what} {precision}: pool kernel launches {launches}, expected {expected}")
+    _profile(f"{what}, {precision}, one step", lambda: step(batch),
+             out_dir / f"chip_smoke_{what.replace(' ', '')}_{precision}_profile.txt", conv_shapes=True)
+    return launches
+
+
+def _precision_phase(pk, mk, dev, images, gt_masks, params, fp32_masks, out_dir: Path) -> dict:
+    """Both train steps at full width in fp32 (TF32 off), fp32 with TF32 and
+    bf16; a served chunk with a bf16 model; a tiny bf16 step card vs CPU.
+    Returns the pool and mmgrid kernels' launches of these runs."""
+    from dsrg_tpu_torch.config import Stage1Config, Stage2Config
+    from dsrg_tpu_torch.inference import Predictor
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train import stage1, stage2
+
+    launches = dict.fromkeys(("pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16"), 0)
+    try:
+        for what, cfg_cls, batch_size, mod in (("stage 1", Stage1Config, TRAIN_BATCH, stage1),
+                                               ("stage 2", Stage2Config, STAGE2_BATCH, stage2)):
+            for precision, tf32 in PRECISIONS:
+                _set_tf32(tf32)
+                bf16 = precision == "bf16"
+                extra = {"crf_fast": True} if bf16 and cfg_cls is Stage1Config else {}
+                cfg = cfg_cls(batch_size=batch_size, compute_dtype="bfloat16" if bf16 else "float32", **extra)
+                model = DeepLabLargeFOV(num_classes=cfg.num_classes, compute_dtype=BF16 if bf16 else torch.float32)
+                init = stage1.init_stage1 if mod is stage1 else stage2.init_stage2
+                make = stage1.make_stage1_step if mod is stage1 else stage2.make_stage2_step
+                state = init(model, cfg, device=dev)
+                step = make(model, cfg, state.optimizer, state.generator)
+                batch = (_train_batch(np.random.default_rng(SEED), cfg, dev) if mod is stage1
+                         else _stage2_batch(images, gt_masks, cfg, dev))
+                for k, v in _timed_steps(pk, what, precision, step, batch, cfg.batch_size, out_dir).items():
+                    launches[k] += v
+                del state, step, model, batch
+                torch.cuda.empty_cache()
+    finally:
+        _set_tf32(False)
+
+    # a served chunk of 8 in sizes mode with a bf16 model of the serving weights
+    predictor = Predictor(DeepLabLargeFOV(num_classes=21, compute_dtype=BF16), params, num_classes=21,
+                          device=dev)
+    predictor.predict_masks_device(images, sizes=SIZES)  # warm-up: the bf16 cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.splat.launches = mk.slice.launches = mk.dense_operands.calls = 0
+    t0 = time.perf_counter()
+    masks = predictor.predict_masks_device(images, sizes=SIZES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
+    agree = min(float((a == b).mean()) for a, b in zip(masks, fp32_masks))
+    print(f"main path (serving, bf16 model, sizes {SIZES}): {1e3 * dt:.1f} ms/chunk of {len(images)}, "
+          f"{len(images) / dt:.2f} images/s, launches {counts}, dense_operands calls {mk.dense_operands.calls}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; agreement with the fp32 "
+          f"model's masks {agree:.5f} (random weights: near-uniform scores)", flush=True)
+    if counts != {"mmgrid_splat": 11, "mmgrid_slice": 11} or mk.dense_operands.calls:
+        raise SystemExit(f"bf16 serving: launches {counts}, expected 11 of each and no dense operands")
+    for im, m in zip(images, masks):
+        if m.shape != im.shape[:2] or m.dtype != np.uint8 or int(m.max()) >= 21:
+            raise SystemExit(f"bf16 serving: bad mask {m.shape} {m.dtype} max {m.max()}")
+    launches.update(counts)
+    _profile("serving, bf16 model, sizes mode, one chunk", lambda: predictor.predict_masks_device(images, sizes=SIZES),
+             out_dir / "chip_smoke_serving_bf16_profile.txt")
+    predictor.close()
+    del predictor
+    torch.cuda.empty_cache()
+
+    _train_card_vs_cpu(np.random.default_rng(SEED), bf16=True)
+    return launches
+
+
+def _synth_set(out_dir: Path):
+    """The ``easy`` synthetic set at LEARN_SIZE as ``synth_check.py`` makes
+    it, in memory: ``make_image`` then, for a train image, ``cues_from_gt``,
+    from one generator of seed 0; the cues go through the reference's pickle."""
+    import dataclasses
+    import tempfile
+
+    from dsrg_tpu_torch.data import synth
+    from dsrg_tpu_torch.data.cues import CueDB, save_cue_db
+
+    grid = (LEARN_SIZE - 1) // 8 + 1
+    spec = dataclasses.replace(synth.PROFILES["easy"], crop_size=LEARN_SIZE, cue_grid=grid, size_min=LEARN_SIZE,
+                               size_max=LEARN_SIZE)
+    rng = np.random.default_rng(SEED)
+    images, gts, entries = [], [], {}
+    for i in range(LEARN_TRAIN + LEARN_VAL):
+        img, gt = synth.make_image(rng, spec)
+        images.append(img)
+        gts.append(gt)
+        if i < LEARN_TRAIN:
+            c, r, col = synth.cues_from_gt(rng, gt, spec)
+            entries[i] = (np.unique(c[c > 0]) if len(c) else np.asarray([], np.int64), (c, r, col))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        save_cue_db(str(Path(tmp) / "cues.pickle"), entries)
+        db = CueDB(str(Path(tmp) / "cues.pickle"), num_classes=21, cue_size=grid)
+        labels, cues = zip(*(db.get(i) for i in range(LEARN_TRAIN)))
+    return images, gts, np.stack(labels), np.stack(cues)
+
+
+def _miou3(conf, gts) -> tuple:
+    """``synth_check._miou_fg``: IoU over background and every class present
+    in the val ground truth, a class never hit scoring 0."""
+    m = conf.M
+    classes = sorted({0} | {int(c) for g in gts for c in np.unique(g)})
+    with np.errstate(divide="ignore", invalid="ignore"):
+        per = [float(np.nan_to_num(m[i, i] / (m[i].sum() + m[:, i].sum() - m[i, i]))) for i in classes]
+    return float(np.mean(per)), classes, per
+
+
+def _learning_phase(pk, dev, out_dir: Path) -> dict:
+    """Stage 1 from scratch on the synthetic set, then val masks and their
+    scores, in fp32 (TF32 off) and in bf16 with crf_fast; returns the pool
+    kernels' launches of the bf16 run."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.inference import Predictor
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
+    from dsrg_tpu_torch.utils.confusion import ConfusionMatrix
+
+    t0 = time.perf_counter()
+    images, gts, labels, cues = _synth_set(out_dir)
+    print(f"learning check: the easy synthetic set, {LEARN_TRAIN} train + {LEARN_VAL} val images of "
+          f"{LEARN_SIZE}x{LEARN_SIZE}, "
+          f"{int(cues.sum())} cue cells, classes {sorted(set(np.unique(np.stack(gts)).tolist()))}; made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    bgr = torch.from_numpy(np.ascontiguousarray(np.stack(images[:LEARN_TRAIN])[..., ::-1])).to(dev)
+    labels_d, cues_d = torch.from_numpy(labels).to(dev), torch.from_numpy(cues).to(dev)
+    launches, scores = {}, {}
+    for precision, dtype in (("fp32", torch.float32), ("bf16", BF16)):
+        bf16 = dtype == BF16
+        cfg = Stage1Config(batch_size=LEARN_BATCH, crop_size=LEARN_SIZE, cue_size=cues.shape[1],
+                           compute_dtype="bfloat16" if bf16 else "float32", crf_fast=bf16)
+        model = DeepLabLargeFOV(num_classes=21, compute_dtype=dtype)
+        state = init_stage1(model, cfg, device=dev)
+        step = make_stage1_step(model, cfg, state.optimizer, state.generator)
+        _zero_counts(pk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        order = {}  # synth_check's loader: sample k is permutation (seed, epoch k // n) at k % n
+        for it in range(LEARN_ITERS):
+            idx = [order.setdefault(k // LEARN_TRAIN, np.random.default_rng((SEED, k // LEARN_TRAIN)).permutation(
+                LEARN_TRAIN))[k % LEARN_TRAIN] for k in range(it * LEARN_BATCH, (it + 1) * LEARN_BATCH)]
+            sel = torch.as_tensor(np.asarray(idx), device=dev)
+            m = step({"images": bgr[sel], "labels": labels_d[sel], "cues": cues_d[sel]})
+            if it % 50 == 0 or it == LEARN_ITERS - 1:
+                losses.append((it, m["loss"].item(), m["seed_pixels"].item()))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches[precision] = _launch_counts(pk)
+        predictor = Predictor(model, device=dev)
+        t0 = time.perf_counter()
+        preds = []
+        for c0 in range(LEARN_TRAIN, LEARN_TRAIN + LEARN_VAL, 8):
+            preds += predictor.predict_masks_device(images[c0: c0 + 8], sizes=[LEARN_SIZE], smooth=False)
+        predict_s = time.perf_counter() - t0
+        conf = ConfusionMatrix(21)
+        for gt, pred in zip(gts[LEARN_TRAIN:], preds):
+            conf.add(gt, pred)
+        quirk = conf.jaccard()[0]
+        miou3, classes, per = _miou3(conf, gts[LEARN_TRAIN:])
+        scores[precision] = miou3
+        print(f"learning check ({precision}{', crf_fast' if bf16 else ', TF32 off'}): {LEARN_ITERS} iterations at "
+              f"batch {LEARN_BATCH} in {train_s:.2f} s ({1e3 * train_s / LEARN_ITERS:.1f} ms/step), loss / seed "
+              f"pixels at " + ", ".join(f"{it}: {loss:.4f} / {px:.0f}" for it, loss, px in losses)
+              + f"; val masks in {predict_s:.2f} s; val mIoU (reference quirk) {quirk:.4f}, miou3 {miou3:.4f} "
+              f"over classes {classes} (IoU {', '.join(f'{v:.4f}' for v in per)}); launches "
+              f"{launches[precision]}", flush=True)
+        predictor.close()
+        del predictor, state, step, model
+        torch.cuda.empty_cache()
+    print(f"learning check: miou3 bf16 - fp32 = {scores['bf16'] - scores['fp32']:+.4f}", flush=True)
+    low = {k: v for k, v in scores.items() if not v >= LEARN_MIOU}
+    if low:
+        raise SystemExit(f"learning check: miou3 below {LEARN_MIOU}: {low}")
+    expected = {"fp32": (LEARN_ITERS * 5, 0), "bf16": (0, LEARN_ITERS * 5)}
+    for precision, (fp32, bf16) in expected.items():
+        if launches[precision] != {"pool_bwd_h": fp32, "pool_bwd_w": fp32, "pool_bwd_h_bf16": bf16,
+                                   "pool_bwd_w_bf16": bf16}:
+            raise SystemExit(f"learning check {precision}: pool kernel launches {launches[precision]}")
+    return {k: launches["fp32"][k] + launches["bf16"][k] for k in launches["fp32"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -769,11 +1067,18 @@ def main() -> int:
     from dsrg_tpu_torch.ops.crf import mmgrid as tmm
     from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
 
+    start = time.perf_counter()
+    phase_t = [start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t[0]:.1f} s (total {now - start:.1f} s)", flush=True)
+        phase_t[0] = now
+
     smi = _smi()
     print(f"card: {smi}", flush=True)
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _set_tf32(False)
     # a server's canvases come in a few bucketed shapes and a trainer's crop
     # is fixed: let cuDNN time its algorithms once per shape (the warm-up)
     torch.backends.cudnn.benchmark = True
@@ -787,10 +1092,15 @@ def main() -> int:
     for name, log in logs.items():
         for line in _ptxas_summary(log):
             print(f"  {name}: {line}", flush=True)
+    phase_done("2 (build)")
 
     rows, plan_ms = _kernel_phase(mk, tmm, dev, rng)
+    phase_done("3 (mmgrid kernels)")
     rows.update(_pool_phase(pk, pooling, dev, TRAIN_BATCH))  # the stage-1 step's: the kernels' line
     _pool_phase(pk, pooling, dev, STAGE2_BATCH)
+    rows.update(_pool_phase(pk, pooling, dev, TRAIN_BATCH, BF16))
+    _pool_phase(pk, pooling, dev, STAGE2_BATCH, BF16)
+    phase_done("4 (pool kernels, fp32 and bf16)")
 
     model = DeepLabLargeFOV(num_classes=21)
     params = _weights(model, rng)
@@ -823,6 +1133,8 @@ def main() -> int:
                 raise SystemExit(f"bad mask: {m.shape} {m.dtype} max {m.max()}")
         print(f"  classes present: {sorted(set(np.unique(np.concatenate([m.ravel() for m in masks])).tolist()))}",
               flush=True)
+        if "sizes" in mode:
+            sizes_masks = masks
 
     _profile("sizes mode, one chunk", lambda: predictor.predict_masks_device(images, sizes=SIZES),
              out_dir / "chip_smoke_profile.txt")
@@ -839,9 +1151,11 @@ def main() -> int:
             raise SystemExit("the card's masks disagree with the CPU's")
     del predictor, cpu_pred, model
     torch.cuda.empty_cache()
+    phase_done("5 (serving)")
 
     launches.update(_train_phase(pk, rng, out_dir))
     _train_card_vs_cpu(rng)
+    phase_done("6 (stage-1 step)")
 
     # the pseudo ground truth: a predictor of the same net and weights, as
     # generate_train_gt.py makes one from the stage-1 snapshot
@@ -853,8 +1167,17 @@ def main() -> int:
     predictor.close()
     del predictor, cpu_pred
     torch.cuda.empty_cache()
+    phase_done("7 (pseudo ground truth)")
     for k, v in _stage2_phase(pk, images, gt_masks, out_dir).items():
         launches[k] += v
+    phase_done("8 (stage-2 step)")
+
+    for k, v in _precision_phase(pk, mk, dev, images, gt_masks, params, sizes_masks, out_dir).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_done("9 (precisions: fp32, TF32, bf16)")
+    for k, v in _learning_phase(pk, dev, out_dir).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_done("10 (learning check)")
 
     kernels = [
         {"name": "mmgrid_splat", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_splat.cu",
@@ -863,14 +1186,13 @@ def main() -> int:
         {"name": "mmgrid_slice", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_slice.cu",
          "replaces": "dsrg_tpu/ops/crf/pallas_mmgrid.py:87", "launches": launches["mmgrid_slice"],
          **rows["mmgrid_slice"]},
-        {"name": "pool_bwd_h", "route": "cuda", "source": "dsrg_tpu_torch/csrc/pool_bwd_h.cu",
-         "replaces": "dsrg_tpu/ops/pallas_pool.py:166", "launches": launches["pool_bwd_h"],
-         **rows["pool_bwd_h"]},
-        {"name": "pool_bwd_w", "route": "cuda", "source": "dsrg_tpu_torch/csrc/pool_bwd_w.cu",
-         "replaces": "dsrg_tpu/ops/pallas_pool.py:189", "launches": launches["pool_bwd_w"],
-         **rows["pool_bwd_w"]},
+    ] + [
+        {"name": name + sfx, "route": "cuda", "source": f"dsrg_tpu_torch/csrc/{name}.cu",
+         "replaces": f"dsrg_tpu/ops/pallas_pool.py:{line}", "launches": launches[name + sfx], **rows[name + sfx]}
+        for name, line in (("pool_bwd_h", 166), ("pool_bwd_w", 189)) for sfx in ("", "_bf16")
     ]
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: total {time.perf_counter() - start:.1f} s", flush=True)
     print(_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

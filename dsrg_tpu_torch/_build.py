@@ -94,12 +94,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(lib_name: str, out: torch.Tensor, args) -> None:
-    """Call the C entry point ``lib_name`` of ``csrc/<lib_name>.cu`` on the
-    current stream of ``out``'s device.  ``args``: the kernel's arguments
-    before the output (tensors and ints), then the ints after it; the stream
-    comes last.  Raises on a non-zero CUDA error code."""
-    fn = getattr(load(lib_name), lib_name)
+def launch(lib_name: str, out: torch.Tensor, args, entry: str = "") -> None:
+    """Call the C entry point ``entry`` (by default ``lib_name``) of
+    ``csrc/<lib_name>.cu`` on the current stream of ``out``'s device.
+    ``args``: the kernel's arguments before the output (tensors and ints),
+    then the ints after it; the stream comes last.  Raises on a non-zero
+    CUDA error code."""
+    entry = entry or lib_name
+    fn = getattr(load(lib_name), entry)
     before, after = args
     fn.argtypes = ([ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_int for a in before]
                    + [ctypes.c_void_p] + [ctypes.c_int] * len(after) + [ctypes.c_void_p])
@@ -109,4 +111,4 @@ def launch(lib_name: str, out: torch.Tensor, args) -> None:
         rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in before),
                 out.data_ptr(), *after, stream)
     if rc != 0:
-        raise RuntimeError(f"{lib_name} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")

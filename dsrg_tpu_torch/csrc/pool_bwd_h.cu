@@ -1,9 +1,11 @@
 // Backward of the H pass of the separable Caffe max pool, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dsrg_tpu/ops/pallas_pool.py::pool_bwd_h
-// (_bwd_h_kernel -> _route_1d).  NCHW planes, N = batch x channels:
-// yw (N, H, Wo) f32 is the W-pooled input of the H pass, g (N, Ho, Wo) f32
-// the cotangent of the pool's output, gw (N, H, Wo) f32 the routed cotangent
+// (_bwd_h_kernel -> _route_1d).  NCHW planes, N = batch x channels, all in
+// one element type T, float or bfloat16 (the JAX kernel's output takes the
+// cotangent's dtype): yw (N, H, Wo) is the W-pooled input of the H pass,
+// g (N, Ho, Wo) the cotangent of the pool's output, gw (N, H, Wo) the routed
+// cotangent
 //
 //   gw[n, j, w] = sum_{t = 0..k-1} [(j + p - t) % s == 0, window o = (j + p - t) / s in [0, Ho)]
 //                   * [yw[n, j, w] == max of window o]
@@ -14,13 +16,14 @@
 // the -inf halo and never hit.  Every window's cotangent goes to its first
 // maximum in scan order (Caffe's stored argmax, XLA's SelectAndScatter
 // order), a window whose maximum is NaN routes nothing, and the taps are
-// summed in the order t = 0..k-1 as _route_1d sums them, so the result is
-// bit-identical to the JAX kernel on any data.
+// summed in the order t = 0..k-1 as _route_1d sums them, each sum rounded to
+// T, so the result is bit-identical to the JAX kernel on any data.
 //
 // Bound on the H100: bytes.  The pass does a few compares per element and
-// must read yw and g and write gw once (pool1 at batch 20 @ 321^2: 0.66 GB,
-// ~0.2 ms at 3.35 TB/s); at that rate an SM's schedulers start about 85
-// warp operations for every 32 elements, so the design counts operations as
+// must read yw and g and write gw once (pool1 at batch 20 @ 321^2: 0.66 GB
+// in float, 0.33 GB in bfloat16, ~0.2 / ~0.1 ms at 3.35 TB/s); at that rate
+// an SM's schedulers start about 85 warp operations for every 32 float
+// elements (half as many for bfloat16), so the design counts operations as
 // much as bytes.
 //
 // A block owns one band of jb rows of one plane, all Wo columns, or, where
@@ -29,23 +32,23 @@
 // leaves a plane, and a band needs the k - 1 rows of yw above and below it
 // and the rows of g whose windows touch it: rows are contiguous, so each is
 // one span of device memory, staged into shared memory once with 16-byte
-// asynchronous copies whatever Wo is (pool_route.cuh).  The halo re-reads
-// 2(k - 1) rows per band; the bands of a plane are neighbours in the grid, so
-// blocks that run together read neighbouring memory and mostly find the halo
-// in L2 (with the planes as neighbours pool1 took a tenth longer).  Then the
+// asynchronous copies whatever Wo is (pool_route.cuh; a tile of the same
+// bytes holds twice as many bfloat16 elements).  The halo re-reads 2(k - 1)
+// rows per band; the bands of a plane are neighbours in the grid, so blocks
+// that run together read neighbouring memory and mostly find the halo in L2 (with the planes as neighbours pool1 took a tenth longer).  Then the
 // work is window-centric:
 //   pass 1, over the band's windows: the tap of the window's first maximum
 //     from k shared-memory reads down its column, one byte per window;
 //   pass 2, over the band's elements: the cotangents of the <= ceil(k / s)
 //     windows that hold the element and whose first tap it is, in tap order,
-//     and one coalesced 4-byte store per element (staging the results in
+//     and one coalesced store per element (staging the float results in
 //     shared memory for 16-byte stores was no faster at any pool).
 // Threads walk a tile by flat position with row and column as loop
 // variables (one division per thread, none per element); a tile's base is
-// 64-bit, offsets inside it are 32-bit.  Stride and window are template
-// arguments for s = 1, 2 and k = 3.  Loads overlap stores across the blocks
-// that are resident on an SM (tiles of ~32 KB, 256 threads), not inside a
-// block.
+// 64-bit, offsets inside it are 32-bit.  Element type, stride and window
+// are template arguments (T = float, bfloat16; s = 1, 2; k = 3).  Loads
+// overlap stores across the blocks that are resident on an SM (tiles of
+// ~32 KB, 256 threads), not inside a block.
 
 #include "pool_route.cuh"
 
@@ -74,13 +77,13 @@ __host__ __device__ inline Band band_of(int b, int jb, int h, int ho, int k, int
 }
 
 // S, K: the stride and the window if known at compile time, else 0
-template <int S, int K>
+template <class T, int S, int K>
 __global__ void __launch_bounds__(THREADS)
-    pool_bwd_h_kernel(const float* __restrict__ yw, const float* __restrict__ g,
-                      float* __restrict__ out, int n, int h, int wo, int ho, int k_arg, int s_arg,
-                      int p, int jb, int n_bands, int pb, int off_g, int off_tap) {
+    pool_bwd_h_kernel(const T* __restrict__ yw, const T* __restrict__ g, T* __restrict__ out, int n,
+                      int h, int wo, int ho, int k_arg, int s_arg, int p, int jb, int n_bands, int pb,
+                      int off_g, int off_tap) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int k = K > 0 ? K : k_arg;
   const int s = S > 0 ? S : s_arg;
   const int tid = threadIdx.x;
@@ -93,10 +96,10 @@ __global__ void __launch_bounds__(THREADS)
   const int n_el = (t.j1 - t.j0) * wo;
   const int y_plane = h * wo, g_plane = ho * wo;  // from one plane of the tile to the next
 
-  const float* sy = smem + stage_span(smem, yw + (n0 * h + t.y_lo) * wo,
-                                      (np - 1) * y_plane + (t.y_hi - t.y_lo) * wo, tid);
-  const float* sg = smem + off_g + stage_span(smem + off_g, g + (n0 * ho + t.o_lo) * wo,
-                                              (np - 1) * g_plane + n_win, tid);
+  const T* sy = smem + stage_span(smem, yw + (n0 * h + t.y_lo) * wo,
+                                  (np - 1) * y_plane + (t.y_hi - t.y_lo) * wo, tid);
+  const T* sg = smem + off_g + stage_span(smem + off_g, g + (n0 * ho + t.o_lo) * wo,
+                                          (np - 1) * g_plane + n_win, tid);
   signed char* stap = reinterpret_cast<signed char*>(smem + off_tap);
   cp_async_wait_all();
   __syncthreads();
@@ -110,7 +113,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
-  float* dst = out + (n0 * h + t.j0) * wo;
+  T* dst = out + (n0 * h + t.j0) * wo;
   for (int q = 0; q < np; ++q) {
     Walk el = first;
     for (int f = tid; f < n_el; f += THREADS, el.next())
@@ -119,11 +122,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int S, int K>
-int launch(const float* yw, const float* g, float* out, int n, int h, int wo, int ho, int k, int s,
-           int p, int jb, int pb, int n_bands, int off_g, int off_tap, int smem,
-           cudaStream_t stream) {
-  auto kernel = pool_bwd_h_kernel<S, K>;
+template <class T, int S, int K>
+int launch(const T* yw, const T* g, T* out, int n, int h, int wo, int ho, int k, int s, int p,
+           int jb, int pb, int n_bands, int off_g, int off_tap, int smem, cudaStream_t stream) {
+  auto kernel = pool_bwd_h_kernel<T, S, K>;
   if (smem > 48 * 1024) {
     const cudaError_t rc =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -134,19 +136,14 @@ int launch(const float* yw, const float* g, float* out, int n, int h, int wo, in
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Returns the CUDA error code of the launch (0 on success; invalid value for
-// k > KMAX or a plan whose shared memory is too small for its tiles).  yw, g
-// and out are contiguous f32; a block takes jb rows of each of pb planes
-// (pb > 1 only with jb = h and every window reaching into the plane), with
-// the cotangent rows at float off_g and the taps at float off_tap of smem
-// bytes of shared memory, as plan_h lays them out.
-extern "C" int pool_bwd_h(const void* yw, const void* g, void* out, int n, int h, int wo, int ho,
-                          int k, int s, int p, int jb, int pb, int off_g, int off_tap, int smem,
-                          void* stream) {
+// Checks the arguments and the plan, then launches the instantiation for
+// T, s and k; returns the CUDA error code.
+template <class T>
+int run(const void* yw, const void* g, void* out, int n, int h, int wo, int ho, int k, int s, int p,
+        int jb, int pb, int off_g, int off_tap, int smem, void* stream) {
+  constexpr int V = vec<T>();
   if (n <= 0 || h <= 0 || wo <= 0 || ho <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k ||
-      jb <= 0 || pb <= 0 || off_g % 4 || off_tap % 4 || smem > SMEM_MAX)
+      jb <= 0 || pb <= 0 || off_g % V || off_tap % V || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   const int n_bands = (h + jb - 1) / jb;
   if ((long)((n + pb - 1) / pb) * n_bands > 0x7fffffffL) return (int)cudaErrorInvalidValue;
@@ -155,17 +152,38 @@ extern "C" int pool_bwd_h(const void* yw, const void* g, void* out, int n, int h
     if (pb > 1 && (n_bands > 1 || t.o_lo != 0 || t.o_hi != ho)) return (int)cudaErrorInvalidValue;
     const long n_win = ((long)(pb - 1) * ho + t.o_hi - t.o_lo) * wo;
     const long n_y = ((long)(pb - 1) * h + t.y_hi - t.y_lo) * wo;
-    if (span_room(n_y) > off_g || off_g + span_room(n_win) > off_tap ||
-        4L * off_tap + n_win > smem)
+    if (span_room<T>(n_y) > off_g || off_g + span_room<T>(n_win) > off_tap ||
+        (long)sizeof(T) * off_tap + n_win > smem)
       return (int)cudaErrorInvalidValue;
   }
-  const auto* a = (const float*)yw;
-  const auto* b = (const float*)g;
-  auto* o = (float*)out;
+  const auto* a = (const T*)yw;
+  const auto* b = (const T*)g;
+  auto* o = (T*)out;
   const auto st = (cudaStream_t)stream;
 #define POOL_BWD_H(S, K) \
-  launch<S, K>(a, b, o, n, h, wo, ho, k, s, p, jb, pb, n_bands, off_g, off_tap, smem, st)
+  launch<T, S, K>(a, b, o, n, h, wo, ho, k, s, p, jb, pb, n_bands, off_g, off_tap, smem, st)
   if (k == 3) return s == 1 ? POOL_BWD_H(1, 3) : s == 2 ? POOL_BWD_H(2, 3) : POOL_BWD_H(0, 3);
   return s == 1 ? POOL_BWD_H(1, 0) : s == 2 ? POOL_BWD_H(2, 0) : POOL_BWD_H(0, 0);
 #undef POOL_BWD_H
+}
+
+}  // namespace
+
+// Return the CUDA error code of the launch (0 on success; invalid value for
+// k > KMAX or a plan whose shared memory is too small for its tiles).  yw, g
+// and out are contiguous, float (pool_bwd_h) or bfloat16 (pool_bwd_h_bf16);
+// a block takes jb rows of each of pb planes (pb > 1 only with jb = h and
+// every window reaching into the plane), with the cotangent rows at element
+// off_g and the taps at element off_tap of smem bytes of shared memory, as
+// plan_h lays them out.
+extern "C" int pool_bwd_h(const void* yw, const void* g, void* out, int n, int h, int wo, int ho,
+                          int k, int s, int p, int jb, int pb, int off_g, int off_tap, int smem,
+                          void* stream) {
+  return run<float>(yw, g, out, n, h, wo, ho, k, s, p, jb, pb, off_g, off_tap, smem, stream);
+}
+
+extern "C" int pool_bwd_h_bf16(const void* yw, const void* g, void* out, int n, int h, int wo,
+                               int ho, int k, int s, int p, int jb, int pb, int off_g, int off_tap,
+                               int smem, void* stream) {
+  return run<__nv_bfloat16>(yw, g, out, n, h, wo, ho, k, s, p, jb, pb, off_g, off_tap, smem, stream);
 }

@@ -1,9 +1,11 @@
 // Backward of the W pass of the separable Caffe max pool, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dsrg_tpu/ops/pallas_pool.py::pool_bwd_w
-// (_bwd_w_kernel -> _route_1d).  NCHW rows, R = batch x channels x H:
-// x (R, W) f32 is the raw pool input, gw (R, Wo) f32 the cotangent of the W
-// pass (what pool_bwd_h returns), gx (R, W) f32 the routed cotangent
+// (_bwd_w_kernel -> _route_1d).  NCHW rows, R = batch x channels x H, all
+// in one element type T, float or bfloat16 (the JAX kernel's output takes
+// the cotangent's dtype): x (R, W) is the raw pool input, gw (R, Wo) the
+// cotangent of the W pass (what pool_bwd_h returns), gx (R, W) the routed
+// cotangent
 //
 //   gx[r, j] = sum_{t = 0..k-1} [(j + p - t) % s == 0, window o = (j + p - t) / s in [0, Wo)]
 //                * [x[r, j] == max of window o]
@@ -14,37 +16,40 @@
 // [0, W) are the -inf halo and never hit.  Every window's cotangent goes to
 // its first maximum in scan order (Caffe's stored argmax, XLA's
 // SelectAndScatter order), a window whose maximum is NaN routes nothing, and
-// the taps are summed in the order t = 0..k-1 as _route_1d sums them, so the
-// result is bit-identical to the JAX kernel on any data.
+// the taps are summed in the order t = 0..k-1 as _route_1d sums them, each
+// sum rounded to T, so the result is bit-identical to the JAX kernel on any
+// data.
 //
 // Bound on the H100: bytes.  The pass does a few compares per element and
-// must read x and gw and write gx once (pool1 at batch 20 @ 321^2: 1.3 GB,
-// ~0.4 ms at 3.35 TB/s); at that rate an SM's schedulers start about 85
-// warp operations for every 32 elements, so the design counts operations as
+// must read x and gw and write gx once (pool1 at batch 20 @ 321^2: 1.3 GB
+// in float, 0.66 GB in bfloat16, ~0.4 / ~0.2 ms at 3.35 TB/s); at that rate
+// an SM's schedulers start about 85 warp operations for every 32 float
+// elements (half as many for bfloat16), so the design counts operations as
 // much as bytes.
 //
 // A block owns rb whole rows (planned in ops/pool_kernels.py::plan_w).
 // Routing along W never leaves a row, so a tile has no halo, and rb rows of
 // x, of gw and of gx are each one contiguous span of device memory, staged
 // into shared memory once with 16-byte asynchronous copies although a row
-// (321, 161, 81 or 41 floats) is never a multiple of 16 bytes
-// (pool_route.cuh).  gw is read at column (j + p - t) / s; the JAX version's
-// repeat of gw to the input width is never materialised.  Then the work is
+// (321, 161, 81 or 41 elements) is never a multiple of 16 bytes
+// (pool_route.cuh; a tile of the same bytes holds twice as many bfloat16
+// rows).  gw is read at column (j + p - t) / s; the JAX version's repeat of
+// gw to the input width is never materialised.  Then the work is
 // window-centric:
 //   pass 1, over the tile's windows: the tap of the window's first maximum
 //     from k shared-memory reads along its row, one byte per window;
 //   pass 2, over the tile's elements: the cotangents of the <= ceil(k / s)
 //     windows that hold the element and whose first tap it is, in tap order,
-//     and one coalesced 4-byte store per element (staging the results in
+//     and one coalesced store per element (staging the float results in
 //     shared memory for 16-byte stores was no faster at any pool).
 // Most warps of pass 1 hold a window at a row's edge, so all windows take the
 // path that tests for the halo (first_max_tap's INSIDE path was slower here).
 // Threads walk a tile by flat position with row and column as loop
 // variables (one division per thread and pass, none per element); a tile's
-// base is 64-bit, offsets inside it are 32-bit.  Stride and window are
-// template arguments for s = 1, 2 and k = 3.  Loads overlap stores across
-// the blocks that are resident on an SM (tiles of ~32 KB, 256 threads), not
-// inside a block.
+// base is 64-bit, offsets inside it are 32-bit.  Element type, stride and
+// window are template arguments (T = float, bfloat16; s = 1, 2; k = 3).
+// Loads overlap stores across the blocks that are resident on an SM (tiles
+// of ~32 KB, 256 threads), not inside a block.
 
 #include "pool_route.cuh"
 
@@ -53,13 +58,13 @@ namespace {
 using namespace pool_route;
 
 // S, K: the stride and the window if known at compile time, else 0
-template <int S, int K>
+template <class T, int S, int K>
 __global__ void __launch_bounds__(THREADS)
-    pool_bwd_w_kernel(const float* __restrict__ x, const float* __restrict__ gw,
-                      float* __restrict__ out, int rows, int w, int wo, int k_arg, int s_arg, int p,
-                      int rb, int off_g, int off_tap) {
+    pool_bwd_w_kernel(const T* __restrict__ x, const T* __restrict__ gw, T* __restrict__ out,
+                      int rows, int w, int wo, int k_arg, int s_arg, int p, int rb, int off_g,
+                      int off_tap) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  T* smem = reinterpret_cast<T*>(smem4);
   const int k = K > 0 ? K : k_arg;
   const int s = S > 0 ? S : s_arg;
   const int tid = threadIdx.x;
@@ -68,8 +73,8 @@ __global__ void __launch_bounds__(THREADS)
   const int n_win = nr * wo;
   const int n_el = nr * w;
 
-  const float* sx = smem + stage_span(smem, x + r0 * w, n_el, tid);
-  const float* sg = smem + off_g + stage_span(smem + off_g, gw + r0 * wo, n_win, tid);
+  const T* sx = smem + stage_span(smem, x + r0 * w, n_el, tid);
+  const T* sg = smem + off_g + stage_span(smem + off_g, gw + r0 * wo, n_win, tid);
   signed char* stap = reinterpret_cast<signed char*>(smem + off_tap);
   cp_async_wait_all();
   __syncthreads();
@@ -79,16 +84,16 @@ __global__ void __launch_bounds__(THREADS)
     stap[f] = (signed char)first_max_tap<K, false>(sx + win.row * w, 1, 0, win.col * s - p, w, k);
   __syncthreads();
 
-  float* dst = out + r0 * w;
+  T* dst = out + r0 * w;
   Walk el(tid, w);
   for (int f = tid; f < n_el; f += THREADS, el.next())
     dst[f] = route<S, K>(stap + el.row * wo, sg + el.row * wo, 1, 0, wo, el.col, p, k, s);
 }
 
-template <int S, int K>
-int launch(const float* x, const float* gw, float* out, int rows, int w, int wo, int k, int s, int p,
-           int rb, int off_g, int off_tap, int smem, cudaStream_t stream) {
-  auto kernel = pool_bwd_w_kernel<S, K>;
+template <class T, int S, int K>
+int launch(const T* x, const T* gw, T* out, int rows, int w, int wo, int k, int s, int p, int rb,
+           int off_g, int off_tap, int smem, cudaStream_t stream) {
+  auto kernel = pool_bwd_w_kernel<T, S, K>;
   if (smem > 48 * 1024) {
     const cudaError_t rc =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -99,28 +104,43 @@ int launch(const float* x, const float* gw, float* out, int rows, int w, int wo,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Returns the CUDA error code of the launch (0 on success; invalid value for
-// k > KMAX or a plan whose shared memory is too small for its rows).  x, gw
-// and out are contiguous f32; rb rows per block, the cotangent rows at float
-// off_g and the taps at float off_tap of smem bytes of shared memory, as
-// plan_w lays them out.
-extern "C" int pool_bwd_w(const void* x, const void* gw, void* out, int rows, int w, int wo, int k,
-                          int s, int p, int rb, int off_g, int off_tap, int smem, void* stream) {
+// Checks the arguments and the plan, then launches the instantiation for
+// T, s and k; returns the CUDA error code.
+template <class T>
+int run(const void* x, const void* gw, void* out, int rows, int w, int wo, int k, int s, int p,
+        int rb, int off_g, int off_tap, int smem, void* stream) {
+  constexpr int V = vec<T>();
   if (rows <= 0 || w <= 0 || wo <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k ||
-      rb <= 0 || off_g % 4 || off_tap % 4 || smem > SMEM_MAX)
+      rb <= 0 || off_g % V || off_tap % V || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   const long n_el = (long)rb * w, n_win = (long)rb * wo;
-  if (span_room(n_el) > off_g || off_g + span_room(n_win) > off_tap ||
-      4L * off_tap + n_win > smem)
+  if (span_room<T>(n_el) > off_g || off_g + span_room<T>(n_win) > off_tap ||
+      (long)sizeof(T) * off_tap + n_win > smem)
     return (int)cudaErrorInvalidValue;
-  const auto* a = (const float*)x;
-  const auto* b = (const float*)gw;
-  auto* o = (float*)out;
+  const auto* a = (const T*)x;
+  const auto* b = (const T*)gw;
+  auto* o = (T*)out;
   const auto st = (cudaStream_t)stream;
-#define POOL_BWD_W(S, K) launch<S, K>(a, b, o, rows, w, wo, k, s, p, rb, off_g, off_tap, smem, st)
+#define POOL_BWD_W(S, K) launch<T, S, K>(a, b, o, rows, w, wo, k, s, p, rb, off_g, off_tap, smem, st)
   if (k == 3) return s == 1 ? POOL_BWD_W(1, 3) : s == 2 ? POOL_BWD_W(2, 3) : POOL_BWD_W(0, 3);
   return s == 1 ? POOL_BWD_W(1, 0) : s == 2 ? POOL_BWD_W(2, 0) : POOL_BWD_W(0, 0);
 #undef POOL_BWD_W
+}
+
+}  // namespace
+
+// Return the CUDA error code of the launch (0 on success; invalid value for
+// k > KMAX or a plan whose shared memory is too small for its rows).  x, gw
+// and out are contiguous, float (pool_bwd_w) or bfloat16 (pool_bwd_w_bf16);
+// rb rows per block, the cotangent rows at element off_g and the taps at
+// element off_tap of smem bytes of shared memory, as plan_w lays them out.
+extern "C" int pool_bwd_w(const void* x, const void* gw, void* out, int rows, int w, int wo, int k,
+                          int s, int p, int rb, int off_g, int off_tap, int smem, void* stream) {
+  return run<float>(x, gw, out, rows, w, wo, k, s, p, rb, off_g, off_tap, smem, stream);
+}
+
+extern "C" int pool_bwd_w_bf16(const void* x, const void* gw, void* out, int rows, int w, int wo,
+                               int k, int s, int p, int rb, int off_g, int off_tap, int smem,
+                               void* stream) {
+  return run<__nv_bfloat16>(x, gw, out, rows, w, wo, k, s, p, rb, off_g, off_tap, smem, stream);
 }

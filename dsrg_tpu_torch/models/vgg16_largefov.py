@@ -14,6 +14,12 @@ like the flax module; inside, activations are NCHW for cuDNN.
 The train forward's MAX pools are the autograd pool whose backward runs the
 ``pool_bwd_h`` / ``pool_bwd_w`` kernels; the eval forward keeps the library
 pool (the same values).
+
+``compute_dtype`` follows flax's ``dtype=`` rule, not ``torch.autocast``: the
+parameters stay float32, each convolution casts its weight and bias to
+``compute_dtype`` at the call (gradients reach the float32 parameters
+through the cast), activations, masks, dropout and pools run in
+``compute_dtype``, and the summed heads are returned as float32.
 """
 
 from __future__ import annotations
@@ -45,10 +51,12 @@ _POOL_STRIDE = (2, 2, 2, 1, 1)
 
 class DeepLabLargeFOV(nn.Module):
     def __init__(self, num_classes: int = 21,
-                 head_dilations: Sequence[int] = (6, 12, 18, 24), dropout_rate: float = 0.5):
+                 head_dilations: Sequence[int] = (6, 12, 18, 24), dropout_rate: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.head_dilations = tuple(head_dilations)
+        self.compute_dtype = compute_dtype
         self.dropout = CaffeDropout(dropout_rate)
         cin = 3
         for name, n_convs, ch, dil in _STAGES:
@@ -64,10 +72,17 @@ class DeepLabLargeFOV(nn.Module):
     def dropout_rate(self) -> float:
         return self.dropout.rate
 
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The convolution ``name`` in ``compute_dtype`` (a no-op cast in float32)."""
+        conv, dt = getattr(self, name), self.compute_dtype
+        return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride, conv.padding,
+                        conv.dilation)
+
     def forward(self, x: torch.Tensor, valid_hw: Optional[torch.Tensor] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x: (B, H, W, 3) mean-subtracted BGR.  Returns (B, H', W', C) f32.
+        """x: (B, H, W, 3) mean-subtracted BGR.  Returns (B, H', W', C) f32
+        scores, computed in ``compute_dtype``.
 
         ``valid_hw``: optional (B, 2) per-image valid extents on a shared
         canvas; the dead region is zeroed before every spatial op, which
@@ -78,7 +93,7 @@ class DeepLabLargeFOV(nn.Module):
         max_pool = caffe_max_pool_train if train else caffe_max_pool_nchw
         # a permuted NHWC tensor would carry its channels-last strides through
         # every convolution; the pool kernels take contiguous NCHW
-        x = x.permute(0, 3, 1, 2).float().contiguous()
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype).contiguous()
         if valid_hw is None:
             vh = vw = None
         else:
@@ -92,7 +107,7 @@ class DeepLabLargeFOV(nn.Module):
 
         for (name, n_convs, _, _), pstride in zip(_STAGES, _POOL_STRIDE):
             for i in range(1, n_convs + 1):
-                x = F.relu(getattr(self, f"{name}_{i}")(mask(x)))
+                x = F.relu(self._conv(f"{name}_{i}", mask(x)))
             x = max_pool(mask(x), 3, pstride, 1)
             if pstride == 2 and vh is not None:
                 vh, vw = pool_out_extent(vh), pool_out_extent(vw)
@@ -100,8 +115,8 @@ class DeepLabLargeFOV(nn.Module):
 
         scores = None
         for k in range(1, len(self.head_dilations) + 1):
-            h = self.dropout(F.relu(getattr(self, f"fc6_{k}")(x)), train, generator)
-            h = self.dropout(F.relu(getattr(self, f"fc7_{k}")(h)), train, generator)
-            h = getattr(self, f"fc8-SEC_{k}")(h)
+            h = self.dropout(F.relu(self._conv(f"fc6_{k}", x)), train, generator)
+            h = self.dropout(F.relu(self._conv(f"fc7_{k}", h)), train, generator)
+            h = self._conv(f"fc8-SEC_{k}", h)
             scores = h if scores is None else scores + h
         return scores.permute(0, 2, 3, 1).float()

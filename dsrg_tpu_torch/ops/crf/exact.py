@@ -10,7 +10,7 @@ symmetric normalisation ``norm = 1 / sqrt(K @ 1 + 1e-20)``
 K is small and the loop is plain fp32 matmuls, batched over a leading image
 dimension.  The JAX package computes them at ``Precision.HIGHEST``: on the
 card TF32 must be off (``torch.backends.cuda.matmul.allow_tf32 = False``,
-PyTorch's default).
+PyTorch's default).  ``fast=True`` multiplies in bfloat16 instead.
 """
 
 from __future__ import annotations
@@ -40,6 +40,25 @@ def _softmax_cols(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(-1, keepdim=True)
 
 
+def _bf16_product(k: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``k @ x`` of bfloat16 (..., N, N) and (..., N, M) with float32 sums and
+    result, as JAX's ``jnp.dot(..., preferred_element_type=jnp.float32)``.
+    On the card bfloat16 GEMMs (``torch.bmm(..., out_dtype=float32)``): one
+    per image, or one over all images' columns where ``k`` is one matrix
+    (the spatial kernel); ``x``'s batch is ``k``'s otherwise.  On the CPU,
+    whose torch has no such product, the float32 product of the same
+    bfloat16 values: the same numbers up to summation order."""
+    if not k.is_cuda:
+        return k.float() @ x.float()
+    n, m = x.shape[-2:]
+    if k[..., 0, 0].numel() == 1:
+        cols = x.reshape(-1, n, m).transpose(0, 1).reshape(1, n, -1)
+        out = torch.bmm(k.reshape(1, n, n), cols, out_dtype=torch.float32)
+        return out.reshape(n, -1, m).transpose(0, 1).reshape(*x.shape[:-2], n, m)
+    out = torch.bmm(k.reshape(-1, n, n), x.reshape(-1, n, m), out_dtype=torch.float32)
+    return out.reshape(*k.shape[:-2], n, m)
+
+
 def mean_field_exact(unary: torch.Tensor, feats_list: Sequence[torch.Tensor],
                      weights: Sequence[float], n_iters: int = 10,
                      fast: bool = False) -> torch.Tensor:
@@ -49,24 +68,27 @@ def mean_field_exact(unary: torch.Tensor, feats_list: Sequence[torch.Tensor],
     reference ``CRF()``); ``feats_list``: one (..., N, d_k) array per kernel;
     ``weights``: the Potts weight of each.  Returns (..., N, M) marginals.
 
-    ``fast=True`` reproduces the JAX package's bf16 option: the kernel
-    matrices and each message's operand are rounded to bf16 and multiplied
-    with fp32 sums.  Here the rounded values are kept in fp32 and multiplied
-    in fp32, which gives the same numbers up to summation order; it is not
-    faster than the default.
+    ``fast=True`` is the JAX package's bfloat16 option
+    (``dsrg_tpu/ops/crf/exact.py:126-141``): the kernel matrices are kept in
+    bfloat16 between iterations (half the bytes), each message's operand is
+    rounded to bfloat16, and the products sum in float32 into a float32
+    result (:func:`_bf16_product`); the norms stay float32, from the rounded
+    matrices.
     """
     kernels = [gaussian_kernel_matrix(f.float()) for f in feats_list]
     if fast:
-        kernels = [k.to(torch.bfloat16).float() for k in kernels]
-    norms = [symmetric_norm(k)[..., None] for k in kernels]
+        kernels = [k.to(torch.bfloat16) for k in kernels]
+        norms = [torch.rsqrt(_bf16_product(k, torch.ones_like(k[..., :1]))[..., 0] + 1e-20)[..., None]
+                 for k in kernels]
+    else:
+        norms = [symmetric_norm(k)[..., None] for k in kernels]
 
     def message(q):
         msg = torch.zeros_like(q)
         for k, nrm, w in zip(kernels, norms, weights):
             x = nrm * q
-            if fast:
-                x = x.to(torch.bfloat16).float()
-            msg = msg + w * (nrm * (k @ x))
+            prod = _bf16_product(k, x.to(torch.bfloat16)) if fast else k @ x
+            msg = msg + w * (nrm * prod)
         return msg
 
     q = _softmax_cols(unary)

@@ -11,9 +11,10 @@ routing (``_route_1d``, ``pallas_pool.py:91-149``):
                   * [x[j] == max of window o]
                   * [no earlier tap of window o equals that max] * g[o]
 
-with the taps summed in the order t = 0..k-1.  Tensors are NCHW: the H pass
-routes along dim 2 against the W-pooled ``yw``, the W pass along dim 3
-against the raw input.
+with the taps summed in the order t = 0..k-1, each sum rounded to the
+cotangent's dtype (float32 or bfloat16, as JAX's ``acc + term`` rounds).
+Tensors are NCHW: the H pass routes along dim 2 against the W-pooled
+``yw``, the W pass along dim 3 against the raw input.
 
 A kernel's block owns a tile that the routing never leaves and that is one
 contiguous span of each tensor: whole rows in the W pass, a band of rows of
@@ -21,10 +22,14 @@ one plane with its halo in the H pass.  It stages the spans in shared memory,
 finds every window's first maximum once and then gathers per element.  The
 tiles are planned here (:func:`plan_h`, :func:`plan_w`) and handed to the
 kernels as integers, so that the geometry can be tested without a card.
+Each source builds both element types: the C entry points ``pool_bwd_h`` /
+``pool_bwd_w`` take float32, ``pool_bwd_h_bf16`` / ``pool_bwd_w_bf16``
+bfloat16, and a tile of the same bytes holds twice as many bfloat16 elements.
 
 A wrapper runs the plain PyTorch version only for tensors on the CPU; a CUDA
-tensor launches the kernel, and anything else raises.
-``pool_bwd_h.launches`` / ``pool_bwd_w.launches`` count kernel launches.
+tensor launches the kernel of its dtype, and anything else raises.
+``pool_bwd_h.launches`` / ``pool_bwd_w.launches`` count float32 kernel
+launches, ``.launches_bf16`` bfloat16 ones.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ import torch.nn.functional as F
 from dsrg_tpu_torch._build import launch
 from dsrg_tpu_torch._device import kernel_device
 
-_F32 = torch.float32
+# the element types the kernels take, with the suffix of their C entry points
+ENTRY_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 KMAX = 4  # the kernels' largest window (csrc/pool_route.cuh); the plain versions take any
 SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90 (227 KB)
 # Shared memory a tile aims for.  Six such blocks of 256 threads are resident
@@ -50,8 +56,8 @@ TILE_BYTES = 32 * 1024
 
 class TilePlan(NamedTuple):
     """How a pass is cut into blocks, and a block's shared memory: the span of
-    the pass input at float 0, of the cotangent at float ``off_g``, one byte
-    per window at float ``off_tap``, ``smem`` bytes in all."""
+    the pass input at element 0, of the cotangent at element ``off_g``, one
+    byte per window at element ``off_tap``, ``smem`` bytes in all."""
 
     rows: int  # output rows per block: of a plane's band (H), of the flat row axis (W)
     tiles: int  # bands per plane (H), blocks in all (W)
@@ -61,16 +67,18 @@ class TilePlan(NamedTuple):
     planes: int = 1  # H: whole planes per block where several fit (then one band)
 
 
-def span_room(n: int) -> int:
-    """Floats of shared memory for a span of ``n`` floats that starts up to 3
-    floats beyond a 16-byte boundary: a multiple of 4."""
-    return (n + 3 + 3) // 4 * 4
+def span_room(n: int, elem: int = 4) -> int:
+    """Elements of shared memory for a span of ``n`` elements of ``elem``
+    bytes that starts up to 16 / elem - 1 elements beyond a 16-byte
+    boundary: a multiple of 16 / elem."""
+    vec = 16 // elem
+    return (n + 2 * (vec - 1)) // vec * vec
 
 
-def _layout(rows: int, tiles: int, n_in: int, n_win: int) -> TilePlan:
-    off_g = span_room(n_in)
-    off_tap = off_g + span_room(n_win)
-    return TilePlan(rows, tiles, off_g, off_tap, 4 * off_tap + (n_win + 15) // 16 * 16)
+def _layout(rows: int, tiles: int, n_in: int, n_win: int, elem: int = 4) -> TilePlan:
+    off_g = span_room(n_in, elem)
+    off_tap = off_g + span_room(n_win, elem)
+    return TilePlan(rows, tiles, off_g, off_tap, elem * off_tap + (n_win + 15) // 16 * 16)
 
 
 def h_band(b: int, jb: int, h: int, ho: int, k: int, s: int, p: int):
@@ -84,44 +92,47 @@ def h_band(b: int, jb: int, h: int, ho: int, k: int, s: int, p: int):
     return j0, j1, y_lo, y_hi, o_lo, o_hi
 
 
-def _plan_h_bands(jb: int, h: int, wo: int, ho: int, k: int, s: int, p: int) -> TilePlan:
+def _plan_h_bands(jb: int, h: int, wo: int, ho: int, k: int, s: int, p: int, elem: int = 4) -> TilePlan:
     n_bands = -(-h // jb)
     bands = [h_band(b, jb, h, ho, k, s, p) for b in range(n_bands)]
     return _layout(jb, n_bands, max(y_hi - y_lo for _, _, y_lo, y_hi, _, _ in bands) * wo,
-                   max(o_hi - o_lo for *_, o_lo, o_hi in bands) * wo)
+                   max(o_hi - o_lo for *_, o_lo, o_hi in bands) * wo, elem)
 
 
 @functools.lru_cache(maxsize=256)
 def plan_h(n: int, h: int, wo: int, ho: int, k: int, s: int, p: int,
-           tile_bytes: int = TILE_BYTES) -> TilePlan:
-    """Tiles of the H pass over ``n`` planes (h, wo) -> (ho, wo): the fewest
-    bands whose shared memory stays within ``tile_bytes``, of equal height
-    but for the last (a band of one row where even that is larger); where a
-    whole plane fits, as many planes as fit (their rows are one span as long
-    as every window reaches into its plane, as Caffe's do)."""
-    jb = next((j for j in range(h, 1, -1) if _plan_h_bands(j, h, wo, ho, k, s, p).smem <= tile_bytes), 1)
-    plan = _plan_h_bands(-(-h // -(-h // jb)), h, wo, ho, k, s, p)
+           tile_bytes: int = TILE_BYTES, elem: int = 4) -> TilePlan:
+    """Tiles of the H pass over ``n`` planes (h, wo) -> (ho, wo) of
+    ``elem``-byte elements: the fewest bands whose shared memory stays
+    within ``tile_bytes``, of equal height but for the last (a band of one
+    row where even that is larger); where a whole plane fits, as many planes
+    as fit (their rows are one span as long as every window reaches into
+    its plane, as Caffe's do)."""
+    jb = next((j for j in range(h, 1, -1)
+               if _plan_h_bands(j, h, wo, ho, k, s, p, elem).smem <= tile_bytes), 1)
+    plan = _plan_h_bands(-(-h // -(-h // jb)), h, wo, ho, k, s, p, elem)
     if plan.smem > SMEM_MAX:
-        raise ValueError(f"pool_bwd_h: one row of {wo} floats with its windows needs {plan.smem} "
+        raise ValueError(f"pool_bwd_h: one row of {wo} elements with its windows needs {plan.smem} "
                          f"bytes of shared memory, over the card's {SMEM_MAX}")
     if plan.tiles == 1 and h_band(0, h, h, ho, k, s, p)[4:] == (0, ho):
         pb = 1
-        while pb < n and _layout(h, 1, (pb + 1) * h * wo, (pb + 1) * ho * wo).smem <= tile_bytes:
+        while pb < n and _layout(h, 1, (pb + 1) * h * wo, (pb + 1) * ho * wo, elem).smem <= tile_bytes:
             pb += 1
-        plan = _layout(h, 1, pb * h * wo, pb * ho * wo)._replace(planes=pb)
+        plan = _layout(h, 1, pb * h * wo, pb * ho * wo, elem)._replace(planes=pb)
     return plan
 
 
 @functools.lru_cache(maxsize=256)
-def plan_w(rows: int, w: int, wo: int, tile_bytes: int = TILE_BYTES) -> TilePlan:
-    """Blocks of whole rows of the W pass over ``rows`` rows w -> wo: as many
-    rows as stay within ``tile_bytes``, at least one."""
-    rb = max(min(tile_bytes // (4 * w + 5 * wo), rows), 1)
-    while rb > 1 and _layout(rb, 0, rb * w, rb * wo).smem > tile_bytes:
+def plan_w(rows: int, w: int, wo: int, tile_bytes: int = TILE_BYTES, elem: int = 4) -> TilePlan:
+    """Blocks of whole rows of the W pass over ``rows`` rows w -> wo of
+    ``elem``-byte elements: as many rows as stay within ``tile_bytes``, at
+    least one."""
+    rb = max(min(tile_bytes // (elem * w + (elem + 1) * wo), rows), 1)
+    while rb > 1 and _layout(rb, 0, rb * w, rb * wo, elem).smem > tile_bytes:
         rb -= 1
-    plan = _layout(rb, -(-rows // rb), rb * w, rb * wo)
+    plan = _layout(rb, -(-rows // rb), rb * w, rb * wo, elem)
     if plan.smem > SMEM_MAX:
-        raise ValueError(f"pool_bwd_w: one row of {w} floats with its windows needs {plan.smem} "
+        raise ValueError(f"pool_bwd_w: one row of {w} elements with its windows needs {plan.smem} "
                          f"bytes of shared memory, over the card's {SMEM_MAX}")
     return plan
 
@@ -162,9 +173,11 @@ def pool_bwd_w_plain(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int) 
     return _route_last(x, gw, k, s, p)
 
 
-def _check(name: str, x: torch.Tensor, shape, device) -> None:
-    if x.dtype != _F32:
-        raise TypeError(f"{name}: expected {_F32}, got {x.dtype}")
+def _check(name: str, x: torch.Tensor, shape, device, dtype) -> None:
+    if dtype not in ENTRY_SUFFIX:
+        raise TypeError(f"the pool kernels take {' or '.join(map(str, ENTRY_SUFFIX))}, got {dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if x.device != device:
@@ -184,18 +197,21 @@ def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int,
     ``tile_bytes``: the shared memory a block of the kernel aims for."""
     b, c, h, wo = yw.shape
     ho = g.shape[2]
-    _check("yw", yw, (b, c, h, wo), yw.device)
-    _check("g", g, (b, c, ho, wo), yw.device)
+    _check("yw", yw, (b, c, h, wo), yw.device, g.dtype)
+    _check("g", g, (b, c, ho, wo), yw.device, g.dtype)
     on_card = kernel_device(yw, "pool kernels")
     _check_geometry(k, s, p, on_card)
     if not on_card:
         return pool_bwd_h_plain(yw, g, k, s, p)
-    out = torch.empty((b, c, h, wo), dtype=_F32, device=yw.device)
-    plan = plan_h(b * c, h, wo, ho, k, s, p, tile_bytes)
+    out = torch.empty((b, c, h, wo), dtype=g.dtype, device=yw.device)
+    plan = plan_h(b * c, h, wo, ho, k, s, p, tile_bytes, g.element_size())
     launch("pool_bwd_h", out, ((yw.contiguous(), g.contiguous()),
                                (b * c, h, wo, ho, k, s, p, plan.rows, plan.planes, plan.off_g, plan.off_tap,
-                                plan.smem)))
-    pool_bwd_h.launches += 1
+                                plan.smem)), "pool_bwd_h" + ENTRY_SUFFIX[g.dtype])
+    if g.dtype == torch.bfloat16:
+        pool_bwd_h.launches_bf16 += 1
+    else:
+        pool_bwd_h.launches += 1
     return out
 
 
@@ -205,20 +221,24 @@ def pool_bwd_w(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int,
     ``tile_bytes``: the shared memory a block of the kernel aims for."""
     b, c, h, w = x.shape
     wo = gw.shape[3]
-    _check("x", x, (b, c, h, w), x.device)
-    _check("gw", gw, (b, c, h, wo), x.device)
+    _check("x", x, (b, c, h, w), x.device, gw.dtype)
+    _check("gw", gw, (b, c, h, wo), x.device, gw.dtype)
     on_card = kernel_device(x, "pool kernels")
     _check_geometry(k, s, p, on_card)
     if not on_card:
         return pool_bwd_w_plain(x, gw, k, s, p)
-    out = torch.empty((b, c, h, w), dtype=_F32, device=x.device)
-    plan = plan_w(b * c * h, w, wo, tile_bytes)
+    out = torch.empty((b, c, h, w), dtype=gw.dtype, device=x.device)
+    plan = plan_w(b * c * h, w, wo, tile_bytes, gw.element_size())
     launch("pool_bwd_w", out, ((x.contiguous(), gw.contiguous()),
-                               (b * c * h, w, wo, k, s, p, plan.rows, plan.off_g, plan.off_tap, plan.smem)))
-    pool_bwd_w.launches += 1
+                               (b * c * h, w, wo, k, s, p, plan.rows, plan.off_g, plan.off_tap, plan.smem)),
+           "pool_bwd_w" + ENTRY_SUFFIX[gw.dtype])
+    if gw.dtype == torch.bfloat16:
+        pool_bwd_w.launches_bf16 += 1
+    else:
+        pool_bwd_w.launches += 1
     return out
 
 
-pool_bwd_h.launches = 0
-pool_bwd_w.launches = 0
+pool_bwd_h.launches = pool_bwd_h.launches_bf16 = 0
+pool_bwd_w.launches = pool_bwd_w.launches_bf16 = 0
 KERNELS = ("pool_bwd_h", "pool_bwd_w")

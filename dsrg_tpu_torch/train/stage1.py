@@ -13,7 +13,9 @@ The step runs on the model's device: the card by default, the CPU (plain
 versions of the kernels) when the model was placed there.  Parity with the
 JAX package needs fp32 throughout, so a caller on the card turns TF32 off
 (``torch.backends.cudnn.allow_tf32 = False``; PyTorch's default is True for
-convolutions).  Data-parallel training waits for the port's
+convolutions).  ``cfg.compute_dtype`` is the model's: a bfloat16 model
+(``DeepLabLargeFOV(compute_dtype=torch.bfloat16)``) returns float32 scores,
+so softmax, CRF, growing and losses stay float32, as in the JAX package.  Data-parallel training waits for the port's
 ``parallel`` modules.
 """
 
@@ -64,6 +66,21 @@ def init_params(model: nn.Module, seed: int) -> None:
             p.copy_(val)
 
 
+def check_compute_dtype(model: nn.Module, cfg) -> None:
+    """Raise unless ``cfg.compute_dtype`` (a name, "float32" or "bfloat16",
+    as in the JAX package) is the model's ``compute_dtype``.  The JAX steps
+    trust their caller, whose ``tools/train.py`` builds the model from the
+    same flag; the port has no such tool yet, and a silent float32 run of a
+    bfloat16 config is the fault this check stops."""
+    want = getattr(torch, cfg.compute_dtype, None)
+    if not isinstance(want, torch.dtype):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r} names no torch dtype")
+    have = getattr(model, "compute_dtype", torch.float32)
+    if have != want:
+        raise ValueError(f"the config's compute_dtype is {cfg.compute_dtype!r} but the model computes "
+                         f"in {have}; build the model with compute_dtype=torch.{cfg.compute_dtype}")
+
+
 def make_optimizer(model: nn.Module, cfg: Stage1Config) -> CaffeSGD:
     return CaffeSGD(dict(model.named_parameters()),
                     lr_step(cfg.base_lr, cfg.gamma, cfg.stepsize),
@@ -93,7 +110,10 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
         the losses, gradients or metrics.
     ``metrics``: 0-d tensors ``loss``, ``loss_seed``, ``loss_constrain``,
     ``seed_pixels`` and ``grad_norm``, as the JAX step returns them.
+    Raises ``ValueError`` when ``cfg.compute_dtype`` is not the model's
+    (:func:`check_compute_dtype`).
     """
+    check_compute_dtype(model, cfg)
     refine = crf_refine_with_log_truegrad if cfg.crf_true_grad else crf_refine_with_log
     names = list(optimizer.params)
     params = [optimizer.params[n] for n in names]

@@ -8,8 +8,9 @@ valid pixel count, ``SegAccuracy``; Caffe SGD with the poly rate
 (``solver-f.prototxt``).  The backward routes the max pools through the
 ``pool_bwd_h`` / ``pool_bwd_w`` kernels, 5 + 5 launches per step.
 
-As in stage 1 the step runs on the model's device, and parity with the
-JAX package needs TF32 off on the card.
+As in stage 1 the step runs on the model's device, parity with the JAX
+package needs TF32 off on the card, and ``cfg.compute_dtype`` must be the
+model's.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from dsrg_tpu_torch.config import Stage2Config
 from dsrg_tpu_torch.losses import softmax_cross_entropy_ignore_sums
 from dsrg_tpu_torch.ops.interp import caffe_interp_shrink
 from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_poly
-from dsrg_tpu_torch.train.stage1 import _device_normalize, init_params
+from dsrg_tpu_torch.train.stage1 import _device_normalize, check_compute_dtype, init_params
 from dsrg_tpu_torch.train.train_state import TrainState
 
 
@@ -55,7 +56,9 @@ def make_stage2_step(model: nn.Module, cfg: Stage2Config, optimizer: CaffeSGD,
       pad_mask: optional (B,) {1, 0}; rows marked 0 become all-ignore and
         drop out of the valid-normalised loss exactly.
     ``metrics``: 0-d tensors ``loss``, ``accuracy`` and ``grad_norm``.
+    Raises ``ValueError`` when ``cfg.compute_dtype`` is not the model's.
     """
+    check_compute_dtype(model, cfg)
     names = list(optimizer.params)
     params = [optimizer.params[n] for n in names]
 

@@ -298,3 +298,87 @@ def test_stage2_step_card_matches_cpu(cuda):
         assert pk.pool_bwd_h.launches - h0 == (5 if dev == cuda else 0)
     for key, v in out["cpu"].items():
         assert abs(out["cuda"][key] - v) <= 1e-3 * abs(v), key
+
+
+# the bf16 kernels at the tiles' edges: tile sizes that cut several bands and
+# ragged last blocks (a tile of the same bytes holds twice as many bf16
+# elements), storage offsets of 0..7 elements, NaN and +-inf; their bits are
+# the plain versions', which round to bf16 after every add
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("h,w,k,s,p,tile,leads", [
+    (321, 321, 3, 2, 1, None, (0, 0)), (161, 161, 3, 2, 1, None, (5, 3)), (41, 41, 3, 1, 1, None, (7, 1)),
+    (41, 41, 3, 1, 1, 65536, (1, 6)), (37, 45, 3, 2, 1, 512, (0, 0)), (38, 29, 3, 2, 1, 512, (3, 2)),
+    (41, 41, 3, 1, 1, 512, (1, 1)), (1, 3, 3, 2, 1, None, (7, 1)), (2, 1, 3, 1, 1, None, (2, 3)),
+    (19, 70, 3, 1, 1, 512, (4, 3)), (23, 31, 2, 2, 0, 512, (2, 2)), (26, 33, 4, 3, 2, 512, (3, 0))])
+def test_pool_kernels_bf16_match_plain(cuda, h, w, k, s, p, tile, leads, special):
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.ops.pooling import _caffe_pool_geometry
+
+    ho, _ = _caffe_pool_geometry(h, k, s, p)
+    wo, _ = _caffe_pool_geometry(w, k, s, p)
+    rng = np.random.default_rng(h * w + s + special)
+    x = rng.integers(0, 3, (2, 3, h, w)).astype(np.float32)
+    yw = rng.integers(0, 3, (2, 3, h, wo)).astype(np.float32)
+    g = rng.normal(size=(2, 3, ho, wo)).astype(np.float32)
+    gw = rng.normal(size=(2, 3, h, wo)).astype(np.float32)
+    if special:
+        for a, shares in ((x, (0.05, 0.1, 0.3)), (yw, (0.05, 0.1, 0.3)), (g, (0.02,) * 3), (gw, (0.02,) * 3)):
+            for value, share in zip((np.nan, np.inf, -np.inf), shares):
+                a[rng.random(a.shape) < share] = value
+
+    def offset_view(a, lead):
+        flat = torch.zeros(a.size + lead, dtype=torch.bfloat16, device=cuda)
+        flat[lead:] = torch.from_numpy(a.ravel()).to(cuda).bfloat16()
+        return flat[lead:].view(a.shape)
+
+    x, yw = offset_view(x, leads[0]), offset_view(yw, leads[0])
+    g, gw = offset_view(g, leads[1]), offset_view(gw, leads[1])
+    assert x.data_ptr() % 16 == 2 * leads[0] and gw.data_ptr() % 16 == 2 * leads[1]
+    more = {} if tile is None else {"tile_bytes": tile}
+    if tile is not None and tile < 8192 and h > 4:
+        assert (pk.plan_h(6, h, wo, ho, k, s, p, tile, 2).tiles > 1
+                and pk.plan_w(6 * h, w, wo, tile, 2).tiles > 1)
+    counts = (pk.pool_bwd_h.launches, pk.pool_bwd_h.launches_bf16)
+    got_h, got_w = pk.pool_bwd_h(yw, g, k, s, p, **more), pk.pool_bwd_w(x, gw, k, s, p, **more)
+    torch.cuda.synchronize()
+    assert (pk.pool_bwd_h.launches, pk.pool_bwd_h.launches_bf16) == (counts[0], counts[1] + 1)
+    for got, ref in ((got_h, pk.pool_bwd_h_plain(yw, g, k, s, p)), (got_w, pk.pool_bwd_w_plain(x, gw, k, s, p))):
+        assert got.dtype == torch.bfloat16
+        if special:  # NaN payloads may differ
+            assert torch.allclose(got.float(), ref.float(), rtol=0.0, atol=0.0, equal_nan=True)
+        else:
+            assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+def test_stage1_bf16_step_card_matches_cpu(cuda):
+    """One tiny bf16 stage-1 step with the bf16 CRF from the same weights on
+    the card (bf16 pool kernels, bf16 GEMMs) and on the CPU (plain versions):
+    bf16 rounds at other places there; on the CPU the bf16 step's metrics sit
+    within 1e-3 of the fp32 step's, and the card is held to 1e-2."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
+
+    rng = np.random.default_rng(6)
+    cfg = Stage1Config(num_classes=6, batch_size=2, crop_size=41, cue_size=6, crf_iters=2, mirror=False,
+                       compute_dtype="bfloat16", crf_fast=True)
+    labels = np.zeros((2, 6), np.float32)
+    labels[:, 0] = labels[0, 2] = labels[1, 4] = 1.0
+    batch = {"images": (rng.normal(size=(2, 41, 41, 3)) * 40).astype(np.float32), "labels": labels,
+             "cues": (rng.uniform(size=(2, 6, 6, 6)) < 0.1).astype(np.float32) * labels[:, None, None, :]}
+    out = {}
+    for dev in (cuda, "cpu"):
+        model = DeepLabLargeFOV(num_classes=6, head_dilations=(2, 4), dropout_rate=0.0,
+                                compute_dtype=torch.bfloat16)
+        state = init_stage1(model, cfg, device=dev)
+        counts = (pk.pool_bwd_h.launches, pk.pool_bwd_h.launches_bf16)
+        m = make_stage1_step(model, cfg, state.optimizer, state.generator)(batch)
+        out[str(dev)] = {k: v.item() for k, v in m.items()}
+        assert (pk.pool_bwd_h.launches, pk.pool_bwd_h.launches_bf16) == (
+            counts[0], counts[1] + (5 if dev == cuda else 0))
+    for key in ("loss", "loss_seed", "loss_constrain", "grad_norm"):
+        # the constrain term is ~1e-3 of the loss: its bf16 noise is judged on the loss's scale
+        scale = out["cpu"]["loss"] if key == "loss_constrain" else out["cpu"][key]
+        assert abs(out["cuda"][key] - out["cpu"][key]) <= 1e-2 * abs(scale), key
+    assert out["cuda"]["seed_pixels"] == out["cpu"]["seed_pixels"]
