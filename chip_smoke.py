@@ -75,7 +75,29 @@ Phases, each fatal on failure:
      ``predict_masks_device(sizes=[321], smooth=False)``, scored by the
      reference's quirk mIoU and the honest ``miou3``; once in fp32 (TF32
      off), once in bf16 with ``crf_fast=True``; fatal if either ``miou3`` is
-     below 0.5.
+     below 0.5;
+  11. the recipe on files (``tools/synth_check.py --two-stage`` with the
+     CRF on): the same ``easy`` set written as a tree by
+     ``data/synth.make_dataset`` with the port's PNG writer (the card's
+     machine has no PIL; the images are the arrays, without JPEG
+     artefacts), then ``python -m dsrg_tpu_torch.tools.run_recipe`` in its
+     default supervised mode, every phase a ``python -m
+     dsrg_tpu_torch.tools.*`` child on the card: stage s and stage f for 300
+     iterations at batch 8 (fp32, TF32 off), the ``test_ms`` and
+     ``test_ms_f`` dumps at 321 with the CRF, and ``evaluate``; each phase's
+     wall time, the dumps' images/s, the children's kernel launches (pool
+     kernels in both trainers, mmgrid kernels in both dumps), every mask read
+     back through ``utils/imageio``; fatal if ``miou3`` is below 0.5.  Then
+     the train CLI at the reference's batches: stage s (batch 20) for 12
+     iterations with a snapshot every 6, a second process with
+     ``--auto-resume`` to 18 that must start at 12, and stage f (batch 10)
+     for 15 iterations from the recipe's stage-s weights with
+     ``--profile-dir`` (steps 10-14): ms/step from the display lines beside
+     phases 6 and 8's in-memory steps, the idle share, launches; the data
+     order after ``seek`` against the uninterrupted stream; and a full-width
+     stage-1 snapshot: its size, sync and async save and restore times, and
+     the restored state bit for bit (also when the parameters move while an
+     async write is in flight).
 Each phase prints its wall time, and the script its total.  The last lines are a JSON line of kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without that line when
 there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
@@ -84,6 +106,7 @@ there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -530,8 +553,9 @@ def _train_batch(rng, cfg, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def _train_phase(pk, rng, out_dir: Path) -> dict:
-    """The stage-1 step at full width; returns the pool kernels' launches."""
+def _train_phase(pk, rng, out_dir: Path) -> tuple:
+    """The stage-1 step at full width; returns the pool kernels' launches
+    and the ms per step."""
     from dsrg_tpu_torch.config import Stage1Config
     from dsrg_tpu_torch.models import DeepLabLargeFOV
     from dsrg_tpu_torch.ops.grow import region_grow
@@ -596,7 +620,7 @@ def _train_phase(pk, rng, out_dir: Path) -> dict:
           f"{region_grow.dsrg_grow.checks - checks0} convergence checks", flush=True)
     del state, step, model, batch, metrics
     torch.cuda.empty_cache()
-    return launches
+    return launches, 1e3 * dt
 
 
 def _train_card_vs_cpu(rng, bf16: bool = False) -> None:
@@ -759,9 +783,9 @@ def _stage2_batch(images, masks, cfg, dev) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
 
 
-def _stage2_phase(pk, images, masks, out_dir: Path) -> dict:
+def _stage2_phase(pk, images, masks, out_dir: Path) -> tuple:
     """The stage-2 step at full width on phase 7's pseudo ground truth;
-    returns the pool kernels' launches."""
+    returns the pool kernels' launches and the ms per step."""
     from dsrg_tpu_torch.config import Stage2Config
     from dsrg_tpu_torch.models import DeepLabLargeFOV
     from dsrg_tpu_torch.train.stage2 import init_stage2, make_stage2_step
@@ -820,7 +844,7 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> dict:
     for key, b in out["cpu"].items():
         if not abs(out["cuda"][key] - b) <= CARD_VS_CPU_RTOL * abs(b):
             raise SystemExit(f"card vs CPU stage-2 step: {key} {out['cuda'][key]} vs {b}")
-    return launches
+    return launches, 1e3 * dt
 
 
 PRECISIONS = (("fp32", False), ("tf32", True), ("bf16", False))  # (name, TF32 on)
@@ -1054,6 +1078,249 @@ def _learning_phase(pk, dev, out_dir: Path) -> dict:
     return {k: launches["fp32"][k] + launches["bf16"][k] for k in launches["fp32"]}
 
 
+# the recipe on files (dsrg_tpu/tools/synth_check.py --two-stage with the CRF
+# on, at the reference's batches for the trainers' own runs)
+RECIPE_ITERS, RECIPE_BATCH = 300, 8
+GEOM_ITERS, GEOM_EVERY, GEOM_RESUME_TO, GEOM_F_ITERS = 12, 6, 18, 15
+KERNEL_NAMES = ("mmgrid_splat", "mmgrid_slice", "pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16")
+
+
+def _run_cli(module: str, argv: list, log: Path) -> list:
+    """``python -m <module> <argv>`` from the checkout's root, its output
+    kept in ``log``; returns [(seconds since the start, line)].  Fails on a
+    non-zero exit."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-u", "-m", module] + [str(a) for a in argv]
+    t0 = time.perf_counter()
+    lines = []
+    log.parent.mkdir(parents=True, exist_ok=True)
+    with open(log, "w") as f, subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True) as proc:
+        for line in proc.stdout:
+            f.write(line)
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        rc = proc.wait()
+    if rc != 0:
+        tail = "\n".join(line for _, line in lines[-25:])
+        raise SystemExit(f"{module} exited {rc} after {time.perf_counter() - t0:.1f} s (log {log}):\n{tail}")
+    return lines
+
+
+def _launch_lines(lines) -> list:
+    return [json.loads(line.split(":", 1)[1]) for _, line in lines if line.startswith("kernel launches:")]
+
+
+def _display_ms(lines, first: int, last: int, batch: int) -> tuple:
+    """Steady ms/step from the arrival of the display lines ``iter first``
+    and ``iter last`` (each ends in a synchronising metrics transfer), and the
+    StepTimer's EMA of the last one."""
+    at = {}
+    ema = None
+    for t, line in lines:
+        m = re.match(r"iter (\d+): loss = \S+(?: \((\d+) ms/iter, ([\d.]+) img/s\))?", line)
+        if m:
+            at[int(m.group(1))] = t
+            if int(m.group(1)) == last and m.group(2):
+                ema = float(m.group(2))
+    ms = 1e3 * (at[last] - at[first]) / (last - first)
+    return ms, batch * 1e3 / ms, ema
+
+
+def _check_masks(mask_dir: Path, ids, shape) -> None:
+    from dsrg_tpu_torch.utils.imageio import read_mask
+
+    for i in ids:
+        m = read_mask(str(mask_dir / f"{i}.png"))
+        if m.shape != shape or m.dtype != np.uint8 or int(m.max()) >= 21:
+            raise SystemExit(f"recipe: bad mask {mask_dir / i}.png: {m.shape} {m.dtype} max {m.max()}")
+
+
+def _snapshot_checks(dev, ckpt_dir: Path) -> None:
+    """A full-width stage-1 state: the snapshot's size, sync and async save
+    and restore times, and the restored state bit for bit (parameters,
+    velocities, step, the card's generator), also when the parameters move
+    right after an async save."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train import checkpoint as ckpt
+    from dsrg_tpu_torch.train.stage1 import init_stage1
+
+    def make(seed):
+        state = init_stage1(DeepLabLargeFOV(num_classes=21), Stage1Config(seed=seed), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for v in state.optimizer.velocity.values():
+            v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        state.optimizer.step_count = 1000 + seed
+        torch.rand(1000, generator=state.generator, device=dev)  # move the random stream on
+        return state
+
+    def snap(state):
+        return ({k: v.clone() for k, v in state.model.state_dict().items()},
+                {k: v.clone() for k, v in state.optimizer.velocity.items()},
+                state.step, state.generator.get_state().clone())
+
+    def same(a, b) -> bool:
+        return (all(torch.equal(a[0][k], b[0][k]) for k in a[0]) and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+                and a[2] == b[2] and torch.equal(a[3], b[3]))
+
+    saved = make(1)
+    want = snap(saved)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(str(ckpt_dir / "sync"), saved, saved.step)
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    writer = ckpt.AsyncCheckpointWriter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apath = writer.save(str(ckpt_dir / "async"), saved, saved.step)
+    async_ms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():  # the step's in-place update, while the write is in flight
+        for p in saved.model.parameters():
+            p.add_(1.0)
+    writer.close()
+    async_total_ms = 1e3 * (time.perf_counter() - t0)
+    size = os.path.getsize(path)
+    for what, p in (("sync", path), ("async", apath)):
+        restored = make(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(p, restored)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        ok = same(snap(restored), want)
+        print(f"snapshot ({what}): {size} bytes ({size / 2**20:.1f} MiB) for "
+              f"{sum(t.numel() for t in want[0].values())} parameters + velocities; restore {restore_ms:.1f} ms; "
+              f"restored state equals the saved one bit for bit: {ok}", flush=True)
+        if not ok:
+            raise SystemExit(f"snapshot ({what}): the restored state differs from the saved one")
+        del restored
+    print(f"snapshot save: sync {sync_ms:.1f} ms; async {async_ms:.1f} ms to return (host copies), "
+          f"{async_total_ms:.1f} ms to the file on disk", flush=True)
+    del saved
+    torch.cuda.empty_cache()
+
+
+def _recipe_phase(dev, out_dir: Path, in_memory_ms: dict) -> dict:
+    """The recipe on files: a PNG-encoded synthetic tree, the supervised
+    ``run_recipe`` (every phase a ``python -m dsrg_tpu_torch.tools.*``
+    child on the card), the trainers at the reference's batches with a
+    snapshot and a resume, and the snapshot's size and times.  The kernels'
+    counts are the children's own (each starts at 0 and prints them when it
+    ends); returns their sums."""
+    import dataclasses
+    import shutil
+
+    from dsrg_tpu_torch.data import synth
+    from dsrg_tpu_torch.data.voc import Stage1Dataset
+    from dsrg_tpu_torch.data.cues import CueDB
+    from dsrg_tpu_torch.tools.synth_check import _miou3
+    from dsrg_tpu_torch.utils import imageio
+
+    base = out_dir / "recipe"
+    shutil.rmtree(base, ignore_errors=True)
+    root, work, logs = base / "data", base / "work", base / "logs"
+    spec = dataclasses.replace(synth.PROFILES["easy"], crop_size=LEARN_SIZE, cue_grid=(LEARN_SIZE - 1) // 8 + 1,
+                               size_min=LEARN_SIZE, size_max=LEARN_SIZE)
+    t0 = time.perf_counter()
+    synth.make_dataset(str(root), LEARN_TRAIN, LEARN_VAL, spec, seed=SEED, encode_image=imageio.write_png)
+    train_ids = (root / "train_aug_id.txt").read_text().split()
+    val_ids = (root / "val_id.txt").read_text().split()
+    print(f"recipe: the easy tree at {LEARN_SIZE}, {len(train_ids)} train + {len(val_ids)} val images, PNG-encoded "
+          f"(no PIL), written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(launches):
+        for k in KERNEL_NAMES:
+            counts[k] += launches.get(k, 0)
+
+    lines = _run_cli("dsrg_tpu_torch.tools.run_recipe", [
+        "--pascal-dir", root, "--list-dir", root, "--cues", root / "cues.pickle", "--work-dir", work,
+        "--stage1-iters", RECIPE_ITERS, "--stage2-iters", RECIPE_ITERS, "--batch-size", RECIPE_BATCH,
+        "--crop-size", LEARN_SIZE, "--test-sizes", LEARN_SIZE, "--test-scales", "1.0", "--dtype", "float32",
+        "--display", 50], logs / "run_recipe.log")
+    phases = [line for _, line in lines if line.startswith("[recipe] ")]
+    rates = [line for _, line in lines if re.match(r"\d+ images in ", line)]
+    losses = [line for _, line in lines if line.startswith("iter ")]
+    per_phase = _launch_lines(lines)
+    print("recipe (supervised, every phase a child process): " + "; ".join(p[9:] for p in phases), flush=True)
+    print("recipe: dumps " + "; ".join(rates) + "; trainers' display lines " + " | ".join(losses), flush=True)
+    names = ("train --stage s", "test_ms", "train --stage f", "test_ms_f")
+    for name, launches in zip(names, per_phase):
+        print(f"recipe: {name} kernel launches {launches}", flush=True)
+        add(launches)
+    pool = {"pool_bwd_h": 5 * RECIPE_ITERS, "pool_bwd_w": 5 * RECIPE_ITERS}
+    grid = {"mmgrid_splat": 11, "mmgrid_slice": 11}  # per chunk of 8: mask normalisation + 10 iterations
+    expected = [pool, {k: v * len(train_ids) // 8 for k, v in grid.items()}, pool,
+                {k: v * len(val_ids) // 8 for k, v in grid.items()}]
+    if len(per_phase) != 4 or any(got.get(k) != v for got, want in zip(per_phase, expected) for k, v in want.items()):
+        raise SystemExit(f"recipe: kernel launches {per_phase}, expected at least {expected}")
+    _check_masks(work / "DSRGOutput", train_ids, (LEARN_SIZE, LEARN_SIZE))
+    _check_masks(work / "DSRG_final_output", val_ids, (LEARN_SIZE, LEARN_SIZE))
+    quirk = float((work / "DSRG_result_final.txt").read_text().split()[1])
+    honest = _miou3(str(root), str(work / "DSRG_final_output"))
+    print(f"recipe: val mIoU (reference quirk) {quirk:.4f}, miou3 {honest['miou3']:.4f} over classes "
+          f"{honest['classes_present']} (IoU {honest['iou_per_class']}); every mask reads back through "
+          f"utils/imageio", flush=True)
+    if not honest["miou3"] >= LEARN_MIOU:
+        raise SystemExit(f"recipe: miou3 {honest['miou3']} below {LEARN_MIOU}")
+
+    # the trainers at the reference's batches: a snapshot and a resume, then stage f
+    snap_s, snap_f = base / "geom-s", base / "geom-f"
+    s_args = ["--stage", "s", "--image-dir", root / "JPEGImages", "--input-list", root / "input_list.txt",
+              "--cues", root / "cues.pickle", "--snapshot-dir", snap_s, "--snapshot-every", GEOM_EVERY,
+              "--display", 2, "--dtype", "float32"]
+    batch_s, batch_f = 20, 10  # Stage1Config / Stage2Config defaults
+    runs = {}
+    runs["s"] = _run_cli("dsrg_tpu_torch.tools.train", s_args + ["--max-iter", GEOM_ITERS], logs / "geom_s.log")
+    runs["s resumed"] = _run_cli("dsrg_tpu_torch.tools.train",
+                                 s_args + ["--max-iter", GEOM_RESUME_TO, "--auto-resume"], logs / "geom_s_resume.log")
+    runs["f"] = _run_cli("dsrg_tpu_torch.tools.train", [
+        "--stage", "f", "--root", root, "--pair-list", work / "train_pairs.txt", "--snapshot-dir", snap_f,
+        "--weights", work / "model-s" / f"step_{RECIPE_ITERS}_params", "--max-iter", GEOM_F_ITERS,
+        "--snapshot-every", GEOM_F_ITERS, "--display", 2, "--dtype", "float32", "--profile-dir", base / "profile-f"],
+        logs / "geom_f.log")
+    text = {k: [line for _, line in v] for k, v in runs.items()}
+    if not any(line.startswith("auto-resume from") and line.endswith(f"step_{GEOM_ITERS}")
+               for line in text["s resumed"]) or f"trained steps {GEOM_ITERS} to {GEOM_RESUME_TO}" not in \
+            text["s resumed"]:
+        raise SystemExit("recipe: the resumed trainer did not continue at step "
+                         f"{GEOM_ITERS}:\n" + "\n".join(text["s resumed"][-10:]))
+    for name, n_steps, (first, last), batch, mem in (
+            ("s", GEOM_ITERS, (8, 12), batch_s, "s"), ("s resumed", GEOM_RESUME_TO - GEOM_ITERS, (14, 18), batch_s, "s"),
+            ("f", GEOM_F_ITERS, (4, 10), batch_f, "f")):
+        ms, ips, ema = _display_ms(runs[name], first, last, batch)
+        launches = _launch_lines(runs[name])[-1]
+        add(launches)
+        print(f"trainer CLI (stage {name}, batch {batch} @ {LEARN_SIZE}^2, fp32, TF32 off): {ms:.1f} ms/step, "
+              f"{ips:.2f} images/s over steps {first + 1}-{last} (display lines); StepTimer EMA at iter {last} "
+              f"{ema} ms/iter (its average starts at the first, warm-up step); in memory (phase "
+              f"{6 if mem == 's' else 8}) {in_memory_ms[mem]:.1f} ms/step; launches {launches}", flush=True)
+        if launches["pool_bwd_h"] != 5 * n_steps or launches["pool_bwd_w"] != 5 * n_steps:
+            raise SystemExit(f"trainer CLI stage {name}: pool launches {launches}, expected {5 * n_steps} each")
+    profile = [line for line in text["f"] if line.startswith("profile:")]
+    print(f"trainer CLI (stage f) steps 10-14 under --profile-dir: {profile}", flush=True)
+    if not profile:
+        raise SystemExit("recipe: the stage-f trainer wrote no profile")
+
+    # the resumed run's data: _EpochOrder after seek() against the uninterrupted stream
+    cue_db = CueDB(str(root / "cues.pickle"), cue_size=(LEARN_SIZE - 1) // 8 + 1)
+    straight = Stage1Dataset(str(root / "JPEGImages"), str(root / "input_list.txt"), cue_db, batch_size=batch_s)
+    resumed = Stage1Dataset(str(root / "JPEGImages"), str(root / "input_list.txt"), cue_db, batch_size=batch_s)
+    order = [straight._next_index() for _ in range(GEOM_RESUME_TO * batch_s)]
+    resumed.seek(GEOM_ITERS)
+    tail = [resumed._next_index() for _ in range((GEOM_RESUME_TO - GEOM_ITERS) * batch_s)]
+    print(f"resume: the data order of steps {GEOM_ITERS + 1}-{GEOM_RESUME_TO} after seek({GEOM_ITERS}) equals the "
+          f"uninterrupted stream's: {tail == order[GEOM_ITERS * batch_s:]}", flush=True)
+    if tail != order[GEOM_ITERS * batch_s:]:
+        raise SystemExit("resume: the data order after seek() differs")
+
+    _snapshot_checks(dev, base / "ckpt")
+    print(f"recipe: kernel launches of phase 11 {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1153,7 +1420,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("5 (serving)")
 
-    launches.update(_train_phase(pk, rng, out_dir))
+    train_launches, stage1_ms = _train_phase(pk, rng, out_dir)
+    launches.update(train_launches)
     _train_card_vs_cpu(rng)
     phase_done("6 (stage-1 step)")
 
@@ -1168,7 +1436,8 @@ def main() -> int:
     del predictor, cpu_pred
     torch.cuda.empty_cache()
     phase_done("7 (pseudo ground truth)")
-    for k, v in _stage2_phase(pk, images, gt_masks, out_dir).items():
+    stage2_launches, stage2_ms = _stage2_phase(pk, images, gt_masks, out_dir)
+    for k, v in stage2_launches.items():
         launches[k] += v
     phase_done("8 (stage-2 step)")
 
@@ -1178,6 +1447,9 @@ def main() -> int:
     for k, v in _learning_phase(pk, dev, out_dir).items():
         launches[k] = launches.get(k, 0) + v
     phase_done("10 (learning check)")
+    for k, v in _recipe_phase(dev, out_dir, {"s": stage1_ms, "f": stage2_ms}).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_done("11 (the recipe on files)")
 
     kernels = [
         {"name": "mmgrid_splat", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_splat.cu",

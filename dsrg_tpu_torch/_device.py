@@ -25,3 +25,10 @@ def kernel_device(x: torch.Tensor, what: str) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{what} take CPU or CUDA tensors, got {x.device}")
+
+
+def disable_tf32() -> None:
+    """Run fp32 convolutions and matmuls in full fp32 on the card, as the JAX
+    package computes them: PyTorch lets cuDNN convolve in TF32 by default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

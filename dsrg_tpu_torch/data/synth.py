@@ -1,14 +1,12 @@
 """Synthetic weakly-supervised segmentation data: the port's own copy of
 ``dsrg_tpu/data/synth.py`` (``SynthSpec``, the ``easy`` and ``voc``
-profiles, ``make_image``, ``cues_from_gt``), with the same names and the same
-numpy ``Generator`` calls in the same order, so that a seed gives the same
-arrays in both packages.
+profiles, ``make_image``, ``cues_from_gt``, ``make_dataset``), with the same names and
+the same numpy ``Generator`` calls in the same order, so that a seed gives
+the same arrays in both packages.
 
 No VOC data can be in this repository; these generated images with sparse
 seed cues, in the reference's cue format (``data/cues.save_cue_db``), are
-its accuracy proxy (``chip_smoke.py``'s learning check).  Left out:
-``make_dataset``, which writes JPEG / PNG files with PIL; the port's check
-keeps its images in memory.
+its accuracy proxy (``tools/synth_check.py``, ``chip_smoke.py``).
 
 Two difficulty profiles:
 
@@ -24,7 +22,10 @@ class on the score grid and background points anywhere unoccupied.
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 from scipy.ndimage import binary_erosion, zoom as ndzoom
@@ -286,3 +287,69 @@ def cues_from_gt(rng: np.random.Generator, gt: np.ndarray, spec: SynthSpec):
         rs.extend(ys[sel].tolist())
         cols.extend(xs[sel].tolist())
     return np.asarray(cs), np.asarray(rs), np.asarray(cols)
+
+
+def _save_jpeg(img: np.ndarray, path: str) -> None:
+    """The JAX package's image file: PIL's JPEG at its default quality."""
+    from PIL import Image
+
+    Image.fromarray(img).save(path)
+
+
+def make_dataset(
+    root: str,
+    n_train: int,
+    n_val: int,
+    spec: SynthSpec,
+    seed: int = 0,
+    progress_every: int = 0,
+    encode_image: Optional[Callable[[np.ndarray, str], None]] = None,
+) -> str:
+    """Write a full reference-format dataset tree under ``root``.
+
+    Layout (identical to the VOC tree the tools expect): ``JPEGImages/``,
+    ``SegmentationClass/``, ``cues.pickle``, ``input_list.txt``,
+    ``train_aug_id.txt``, ``val_id.txt``.  Image-level labels are derived
+    from cue presence (an object fully occluded away yields no cues and no
+    label bit — matching how CAM misses invisible objects).
+
+    ``encode_image(array, path)`` writes each RGB image; ``None`` is PIL's
+    JPEG, saved as the JAX package saves it, so both packages write the same
+    tree for a seed.  ``utils.imageio.write_png`` writes a lossless PNG
+    instead, where PIL is not installed: the file keeps its ``<id>.jpg``
+    name, which the lists and every tool expect, and the readers decode it by
+    its content.  Such a tree has no JPEG artefacts: its images are the
+    generated arrays themselves.
+    """
+    from dsrg_tpu_torch.data.cues import save_cue_db
+    from dsrg_tpu_torch.utils.palette import write_png
+
+    encode = encode_image or _save_jpeg
+    rng = np.random.default_rng(seed)
+    os.makedirs(osp.join(root, "JPEGImages"), exist_ok=True)
+    os.makedirs(osp.join(root, "SegmentationClass"), exist_ok=True)
+    entries = {}
+    train_ids, val_ids = [], []
+    for i in range(n_train + n_val):
+        img, gt = make_image(rng, spec)
+        img_id = f"synth_{i:05d}"
+        encode(img, osp.join(root, "JPEGImages", img_id + ".jpg"))
+        write_png(gt, osp.join(root, "SegmentationClass", img_id + ".png"))
+        if i < n_train:
+            train_ids.append(img_id)
+            c, r, col = cues_from_gt(rng, gt, spec)
+            fg = np.unique(c[c > 0]) if len(c) else np.asarray([], np.int64)
+            entries[i] = (fg, (c, r, col))
+        else:
+            val_ids.append(img_id)
+        if progress_every and (i + 1) % progress_every == 0:
+            print(f"synth: {i + 1}/{n_train + n_val} images", flush=True)
+    save_cue_db(osp.join(root, "cues.pickle"), entries)
+    with open(osp.join(root, "input_list.txt"), "w") as f:
+        for i, img_id in enumerate(train_ids):
+            f.write(f"{img_id}.jpg {i}\n")
+    with open(osp.join(root, "train_aug_id.txt"), "w") as f:
+        f.write("\n".join(train_ids) + "\n")
+    with open(osp.join(root, "val_id.txt"), "w") as f:
+        f.write("\n".join(val_ids) + "\n")
+    return root

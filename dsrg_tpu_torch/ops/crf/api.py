@@ -69,7 +69,7 @@ def resolve_engine(engine: str, h: int, w: int) -> str:
         raise ValueError(f"unknown CRF engine {engine!r}; expected one of {'/'.join(ENGINES)}")
     if engine in ("grid", "lattice", "native"):
         raise NotImplementedError(
-            f"CRF engine {engine!r} is not ported yet (ROADMAP.md Queue 1 item 4); "
+            f"CRF engine {engine!r} is not ported yet (ROADMAP.md Queue 1 item 6); "
             "use 'exact', 'mmgrid' or 'auto'")
     if engine != "auto":
         return engine

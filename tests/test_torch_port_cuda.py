@@ -5,6 +5,8 @@ nothing of JAX, so on a machine without it they run with
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -382,3 +384,77 @@ def test_stage1_bf16_step_card_matches_cpu(cuda):
         scale = out["cpu"]["loss"] if key == "loss_constrain" else out["cpu"][key]
         assert abs(out["cuda"][key] - out["cpu"][key]) <= 1e-2 * abs(scale), key
     assert out["cuda"]["seed_pixels"] == out["cpu"]["seed_pixels"]
+
+
+def test_prefetch_loader_to_the_card_equals_cpu(cuda):
+    """Batches copied on the loader's own stream (pinned memory, an event the
+    consumer waits on) equal the CPU loader's, and a step-sized use right
+    after the hand-over reads the copied values."""
+    from dsrg_tpu_torch.data.loader import PrefetchLoader
+
+    rng = np.random.default_rng(0)
+    batches = [{"images": rng.normal(size=(4, 33, 33, 3)).astype(np.float32) * 40,
+                "labels": rng.integers(0, 255, (4, 33, 33)).astype(np.uint8)} for _ in range(6)]
+    on_cpu = list(PrefetchLoader(batches, device="cpu"))
+    for in_worker in (True, False):
+        on_card = list(PrefetchLoader(batches, device=cuda, device_in_worker=in_worker))
+        assert len(on_card) == len(on_cpu) == 6
+        for a, b in zip(on_card, on_cpu):
+            assert a["images"].device.type == "cuda" and a["images"].dtype == torch.float16
+            for k in a:
+                assert torch.equal((a[k].float() * 2).cpu(), b[k].float() * 2), k
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A stage-1 state on the card: parameters, velocities, step and the
+    card's generator come back bit for bit, and the random stream goes on
+    as the saved one would."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train import checkpoint as ckpt
+    from dsrg_tpu_torch.train.stage1 import init_stage1
+
+    def make(seed):
+        state = init_stage1(DeepLabLargeFOV(num_classes=6, head_dilations=(2,)), Stage1Config(seed=seed),
+                            device=cuda)
+        for v in state.optimizer.velocity.values():
+            v.normal_(generator=torch.Generator(device=cuda).manual_seed(seed))
+        state.optimizer.step_count = 10 + seed
+        torch.rand(100, generator=state.generator, device=cuda)
+        return state
+
+    saved = make(0)
+    writer = ckpt.AsyncCheckpointWriter()
+    path = writer.save(str(tmp_path), saved, saved.step)
+    want = ({k: v.clone() for k, v in saved.model.state_dict().items()},
+            {k: v.clone() for k, v in saved.optimizer.velocity.items()})
+    with torch.no_grad():
+        for p in saved.model.parameters():
+            p.mul_(3.0)  # in place after save(): the snapshot keeps the values at save()
+    writer.close()
+    restored = ckpt.restore_checkpoint(path, make(1))
+    assert restored.step == 10
+    for k, v in restored.model.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v, want[0][k]), k
+    for k, v in restored.optimizer.velocity.items():
+        assert torch.equal(v, want[1][k]), k
+    assert torch.equal(restored.generator.get_state(), saved.generator.get_state())
+    assert torch.equal(torch.rand(8, generator=restored.generator, device=cuda),
+                       torch.rand(8, generator=saved.generator, device=cuda))
+
+
+def test_train_cli_with_cuda_hidden_raises(cuda, tmp_path):
+    """``--device cuda`` (the default) where no card is visible: the CLI
+    stops at ``resolve_device`` with its message, before any work."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(root))
+    proc = subprocess.run([sys.executable, "-m", "dsrg_tpu_torch.tools.train", "--stage", "s",
+                           "--snapshot-dir", str(tmp_path / "m")], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (tmp_path / "m").exists()

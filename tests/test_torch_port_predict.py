@@ -84,7 +84,7 @@ def test_crf_engine_resolution(caplog):
     with pytest.raises(ValueError, match="unknown CRF engine"):
         tapi.resolve_engine("lattise", 4, 4)
     for engine in ("grid", "lattice", "native"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             tapi.resolve_engine(engine, 4, 4)
     with pytest.raises(ValueError):  # the JAX package refuses the same name
         japi.CRF(np.zeros((4, 4, 3)), np.zeros((4, 4, 2)), engine="lattise")
