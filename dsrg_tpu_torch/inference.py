@@ -84,8 +84,11 @@ def _softmax_floor(scores: np.ndarray) -> np.ndarray:
 class Predictor:
     def __init__(self, model: torch.nn.Module, params=None, num_classes: int = 21,
                  bucket: int = 1, device=None):
-        """``params``: optional state_dict (torch tensors or numpy arrays)
-        loaded into ``model``.  ``bucket`` > 1 pads the host-zoom paths'
+        """``model``: either family (``DeepLabLargeFOV``, or
+        ``ResNet101DeepLab``, whose frozen BN statistics are buffers of the
+        module, so one state_dict carries all its variables, as the JAX
+        package's variables dict does).  ``params``: optional state_dict
+        (torch tensors or numpy arrays) loaded into ``model``.  ``bucket`` > 1 pads the host-zoom paths'
         forward inputs up to 8k+1 shape buckets (masked, so exact) instead
         of forwarding each image at its own shape.  ``device`` defaults to
         the card and raises where CUDA is absent; pass ``"cpu"`` to run the

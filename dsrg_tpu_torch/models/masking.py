@@ -5,7 +5,8 @@ mixes spatial positions makes a shared-canvas forward equal to running the
 net at each image's own size: convolutions then read zeros where the
 exact-size forward reads its zero padding, post-ReLU MAX pools never let a
 masked zero beat a real activation, and the 3x3/pad-1 AVE pool divides by 9
-either way.  Extents shrink through the k3/s2/p1 pools as ``floor(v/2)+1``.
+either way.  Extents shrink through the k3/s2/p1 pools as ``floor(v/2)+1``
+and through a k/s/p convolution as ``floor((v + 2p - k)/s) + 1``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ def apply_valid_mask(x: torch.Tensor, vh: Optional[torch.Tensor],
     return x * valid_mask(x.shape[1], x.shape[2], vh, vw).to(x.dtype)
 
 
+def mask_nchw(x: torch.Tensor, vh: Optional[torch.Tensor], vw: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero NCHW ``x`` beyond the per-image valid extent; identity when vh is None."""
+    if vh is None:
+        return x
+    return x * valid_mask(x.shape[2], x.shape[3], vh, vw).permute(0, 3, 1, 2).to(x.dtype)
+
+
 def masked_pool_input(x: torch.Tensor, vh: Optional[torch.Tensor],
                       vw: Optional[torch.Tensor]) -> torch.Tensor:
     """Mask ``x`` as the input of a following Caffe MAX pool.  Exact only
@@ -38,6 +46,19 @@ def masked_pool_input(x: torch.Tensor, vh: Optional[torch.Tensor],
     return apply_valid_mask(x, vh, vw)
 
 
+def split_valid_hw(valid_hw: Optional[torch.Tensor]):
+    """(B, 2) -> ((B,), (B,)) f32 extents, or (None, None)."""
+    if valid_hw is None:
+        return None, None
+    v = valid_hw.to(torch.float32)
+    return v[:, 0], v[:, 1]
+
+
 def pool_out_extent(v: torch.Tensor) -> torch.Tensor:
     """Caffe 3x3/stride-2/pad-1 pooled extent: floor(v/2)+1."""
     return torch.floor(v / 2.0) + 1.0
+
+
+def conv_out_extent(v: torch.Tensor, k: int, s: int, p: int) -> torch.Tensor:
+    """Caffe convolution output extent: floor((v + 2p - k)/s) + 1."""
+    return torch.floor((v + 2.0 * p - k) / s) + 1.0

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dsrg_tpu_torch.models.masking import pool_out_extent, valid_mask
+from dsrg_tpu_torch.models.masking import mask_nchw, pool_out_extent, split_valid_hw
 from dsrg_tpu_torch.ops.dropout import CaffeDropout
 from dsrg_tpu_torch.ops.pooling import (
     caffe_avg_pool_nchw,
@@ -94,16 +94,10 @@ class DeepLabLargeFOV(nn.Module):
         # a permuted NHWC tensor would carry its channels-last strides through
         # every convolution; the pool kernels take contiguous NCHW
         x = x.permute(0, 3, 1, 2).to(self.compute_dtype).contiguous()
-        if valid_hw is None:
-            vh = vw = None
-        else:
-            v = valid_hw.to(torch.float32)
-            vh, vw = v[:, 0], v[:, 1]
+        vh, vw = split_valid_hw(valid_hw)
 
         def mask(t):
-            if vh is None:
-                return t
-            return t * valid_mask(t.shape[2], t.shape[3], vh, vw).permute(0, 3, 1, 2).to(t.dtype)
+            return mask_nchw(t, vh, vw)
 
         for (name, n_convs, _, _), pstride in zip(_STAGES, _POOL_STRIDE):
             for i in range(1, n_convs + 1):

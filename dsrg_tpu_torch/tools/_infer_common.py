@@ -22,7 +22,7 @@ import numpy as np
 
 from dsrg_tpu_torch._device import disable_tf32, resolve_device
 from dsrg_tpu_torch.inference import Predictor
-from dsrg_tpu_torch.models import DeepLabLargeFOV
+from dsrg_tpu_torch.models import FAMILIES
 from dsrg_tpu_torch.train.checkpoint import load_params
 from dsrg_tpu_torch.utils.imageio import read_image_rgb
 from dsrg_tpu_torch.utils.palette import write_png
@@ -46,8 +46,8 @@ def build_arg_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--num-classes", "--class", dest="num_classes", default=21,
                    type=int, help="--class kept as the reference's COCO-tool "
                                   "spelling (test-coco.py:37)")
-    p.add_argument("--model-name", choices=["vgg16", "resnet101"], default="vgg16",
-                   help="backbone family (resnet101: ROADMAP.md Queue 1 item 7)")
+    p.add_argument("--model-name", choices=sorted(FAMILIES), default="vgg16",
+                   help="backbone family")
     p.add_argument("--batch", default=8, type=int,
                    help="images per batched forward/CRF chunk (1 = reference-style serial)")
     p.add_argument("--bucket", default=1, type=int,
@@ -102,17 +102,16 @@ def load_predictor(
     model_path: str, num_classes: int, model_name: str = "vgg16", bucket: int = 1,
     mesh: bool = False, device=None,
 ) -> Predictor:
-    """A fp32 VGG16-LargeFOV predictor of a params file on ``device`` (the
-    card by default, with TF32 off as the JAX package computes).  ResNet-101
-    and a mesh exit, naming their ROADMAP.md items."""
-    if model_name == "resnet101":
-        raise not_ported("--model-name resnet101", 7)
+    """A fp32 predictor of a params file (a VGG16-LargeFOV, or with
+    ``model_name="resnet101"`` a ResNet-101 and its BN statistics) on
+    ``device`` (the card by default, with TF32 off as the JAX package
+    computes).  A mesh exits, naming its ROADMAP.md item."""
     if mesh:
         raise not_ported("--mesh", 8)
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
-    model = DeepLabLargeFOV(num_classes=num_classes)
+    model = FAMILIES[model_name](num_classes=num_classes)
     return Predictor(model, load_params(model_path), num_classes=num_classes, bucket=bucket, device=dev)
 
 

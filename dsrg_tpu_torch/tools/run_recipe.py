@@ -123,8 +123,7 @@ def main(argv=None) -> None:
                         "(images per forward/CRF chunk)")
     p.add_argument("--no-smooth", action="store_true", help="skip CRF post-processing")
     p.add_argument("--model", dest="model_name", choices=["vgg16", "resnet101"],
-                   default="vgg16", help="backbone family for both stages "
-                                         "(resnet101: ROADMAP.md Queue 1 item 7)")
+                   default="vgg16", help="backbone family for both stages")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "exact", "mmgrid", "lattice", "grid", "native"],
                    help="CRF engine for the inference stages (lattice/grid/"

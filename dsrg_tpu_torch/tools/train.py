@@ -6,10 +6,12 @@ prototxt is replaced by ``--stage {s,f}`` selecting the built-in
 solver-s/solver-f hyperparameters (overridable via flags).  ``--weights``
 warm-starts parameters from a params file (``net.copy_from`` semantics);
 ``--snapshot`` resumes a full train state (``solver.restore`` semantics).
-The flags are the JAX CLI's plus ``--device`` (``cuda`` by default, ``cpu``
-for the kernels' plain versions).  Flags whose code waits for a later slice
-of the port (COCO, ResNet-101 and Caffe weights, several processes) exit
-naming their ROADMAP.md item.
+``--weights x.caffemodel`` imports Caffe weights for either family (for a
+ResNet-101 its BN statistics too: the warm start that ``calibrate_bn``
+writes).  The flags are the JAX CLI's plus ``--device`` (``cuda`` by
+default, ``cpu`` for the kernels' plain versions).  Flags whose code waits
+for a later slice of the port (COCO, several processes) exit naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from dsrg_tpu_torch.config import Stage1Config, Stage2Config
 from dsrg_tpu_torch.data.cues import CueDB
 from dsrg_tpu_torch.data.loader import PrefetchLoader
 from dsrg_tpu_torch.data.voc import Stage1Dataset, Stage2Dataset
-from dsrg_tpu_torch.models import DeepLabLargeFOV
+from dsrg_tpu_torch.models import FAMILIES
+from dsrg_tpu_torch.models.import_caffe import caffe_blobs_to_torch, load_caffemodel, resnet_blobs_to_torch
 from dsrg_tpu_torch.tools._infer_common import not_ported
 from dsrg_tpu_torch.train import checkpoint as ckpt
 from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
@@ -37,7 +40,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a DSRG network")
     p.add_argument("--stage", choices=["s", "f"], required=True,
                    help="s = DSRG seed training, f = retrain on pseudo GT")
-    p.add_argument("--weights", default=None, help="params file to warm-start from")
+    p.add_argument("--weights", default=None,
+                   help="params file or .caffemodel to warm-start from")
     p.add_argument("--snapshot", default=None, help="full train-state checkpoint to resume")
     p.add_argument("--snapshot-dir", default="models", help="snapshot output dir")
     p.add_argument("--gpu", dest="gpu_id", default=0, type=int, help="unused (parity flag)")
@@ -55,8 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--dataset", choices=["voc", "coco"], default="voc",
                    help="stage s data source: VOC cue pickle or COCO dense cues "
                         "(coco: ROADMAP.md Queue 1 item 4)")
-    p.add_argument("--model", dest="model_name", choices=["vgg16", "resnet101"],
-                   default="vgg16", help="backbone family (resnet101: ROADMAP.md Queue 1 item 7)")
+    p.add_argument("--model", dest="model_name", choices=sorted(FAMILIES),
+                   default="vgg16", help="backbone family")
     # solver overrides
     p.add_argument("--max-iter", type=int, default=None)
     p.add_argument("--base-lr", type=float, default=None)
@@ -166,10 +170,6 @@ def _override(cfg, args):
 def _check_ported(args) -> None:
     if args.dataset == "coco":
         raise not_ported("--dataset coco", 4)
-    if args.model_name == "resnet101":
-        raise not_ported("--model resnet101", 7)
-    if args.weights and args.weights.endswith(".caffemodel"):
-        raise not_ported("--weights <.caffemodel>", 7)
     if args.num_processes > 1 or args.coordinator:
         raise not_ported("--num-processes > 1 / --coordinator", 8)
 
@@ -188,7 +188,7 @@ def main(argv=None) -> None:
 
     if args.stage == "s":
         cfg = _override(Stage1Config(), args)
-        model = DeepLabLargeFOV(num_classes=cfg.num_classes, compute_dtype=dtype)
+        model = FAMILIES[args.model_name](num_classes=cfg.num_classes, compute_dtype=dtype)
         state = init_stage1(model, cfg, device=dev)
         cue_db = CueDB(args.cues, num_classes=cfg.num_classes, cue_size=cfg.cue_size)
         dataset = Stage1Dataset(
@@ -199,7 +199,7 @@ def main(argv=None) -> None:
         step = make_stage1_step(model, cfg, state.optimizer, state.generator)
     else:
         cfg = _override(Stage2Config(), args)
-        model = DeepLabLargeFOV(num_classes=cfg.num_classes, compute_dtype=dtype)
+        model = FAMILIES[args.model_name](num_classes=cfg.num_classes, compute_dtype=dtype)
         state = init_stage2(model, cfg, device=dev)
         dataset = Stage2Dataset(
             args.root, args.pair_list,
@@ -208,7 +208,11 @@ def main(argv=None) -> None:
         )
         step = make_stage2_step(model, cfg, state.optimizer, state.generator)
 
-    if args.weights:
+    if args.weights and args.weights.endswith(".caffemodel"):
+        blobs = load_caffemodel(args.weights)
+        to_torch = resnet_blobs_to_torch if args.model_name == "resnet101" else caffe_blobs_to_torch
+        model.load_state_dict(to_torch(blobs, model.state_dict()))
+    elif args.weights:
         ckpt.copy_from(model, ckpt.load_params(args.weights))
     if args.snapshot:
         ckpt.restore_checkpoint(args.snapshot, state)

@@ -4,10 +4,12 @@ Covers the reference's solver-snapshot contract (``SURVEY.md`` §5) with
 ``torch.save`` / ``torch.load(weights_only=True)`` in place of orbax:
 
 * ``save_checkpoint`` / ``restore_checkpoint``: the full train state — the
-  model's state_dict, ``CaffeSGD``'s velocities and step, and the random
+  model's state_dict (parameters, and a ResNet's frozen BN statistics as its
+  buffers), ``CaffeSGD``'s velocities (parameters only) and step, and the random
   stream's ``torch.Generator`` state — the ``.caffemodel`` + ``.solverstate``
   pair's equivalent (``solver-s.prototxt:16-17``, ``train.py:57-58``).
-* ``save_params`` / ``load_params``: the model's state_dict alone, what
+* ``save_params`` / ``load_params``: the model's state_dict alone (BN
+  buffers included), what
   ``tools/train.py`` writes as ``step_{n}_params`` and the inference tools
   and ``--weights`` read.
 * ``copy_from``: Caffe's ``net.copy_from(weights)`` partial warm start

@@ -11,8 +11,8 @@ momentum -> apply):
 The learning rate scales the gradient before momentum, unlike
 ``torch.optim.SGD``, so the two differ at every ``lr_step`` boundary; the
 rate is read at the step count before the increment.  Multipliers from the
-prototxt ``param {}`` blocks: weights 1/1, biases 2/0, the fc8 heads 10/1 and
-20/0.
+prototxt ``param {}`` blocks: weights 1/1, biases 2/0, the heads 10/1 and
+20/0, batch norm 0/0.
 """
 
 from __future__ import annotations
@@ -34,14 +34,19 @@ def lr_poly(base_lr: float, power: float, max_iter: int) -> Callable[[int], floa
 
 
 def vgg_param_mults(names) -> tuple:
-    """({name: lr_mult}, {name: decay_mult}) for state_dict names: fc8
-    heads 10 (weights) / 20 (biases), other biases 2, weights 1; biases never
-    decay."""
+    """({name: lr_mult}, {name: decay_mult}) for state_dict names, JAX's
+    rule for both families: the heads (``fc8*``, ``fc1_voc12*``) 10
+    (weights) / 20 (biases), other biases 2, weights 1; biases never decay;
+    batch norm (a path part containing ``bn``) 0 / 0, frozen as
+    Caffe-DeepLab freezes it."""
     lr, dec = {}, {}
     for name in names:
-        layer, kind = name.rsplit(".", 1)
+        *path, kind = name.split(".")
+        if any("bn" in part for part in path):
+            lr[name] = dec[name] = 0.0
+            continue
         is_bias = kind == "bias"
-        is_head = layer.startswith("fc8")
+        is_head = any(part.startswith(("fc8", "fc1_voc12")) for part in path)
         lr[name] = (20.0 if is_bias else 10.0) if is_head else (2.0 if is_bias else 1.0)
         dec[name] = 0.0 if is_bias else 1.0
     return lr, dec

@@ -2,7 +2,9 @@
 
 Per step, in the reference's layer order (``train-s.prototxt``):
   joint random mirror of images and cues   (AnnotationLayer)
-  -> VGG16-LargeFOV train forward          (dropout; pools routed on the kernels)
+  -> the backbone's train forward         (VGG16-LargeFOV with dropout, or
+                                            ResNet-101 with frozen BN; max
+                                            pools routed on the kernels)
   -> floored softmax, then the CRFLayer's clamp with identity gradient
   -> dense-CRF refinement, once            (CRFLayer + DSRGLayer.refinement)
   -> seeded region growing                 (no gradient)
@@ -15,8 +17,10 @@ JAX package needs fp32 throughout, so a caller on the card turns TF32 off
 (``torch.backends.cudnn.allow_tf32 = False``; PyTorch's default is True for
 convolutions).  ``cfg.compute_dtype`` is the model's: a bfloat16 model
 (``DeepLabLargeFOV(compute_dtype=torch.bfloat16)``) returns float32 scores,
-so softmax, CRF, growing and losses stay float32, as in the JAX package.  Data-parallel training waits for the port's
-``parallel`` modules.
+so softmax, CRF, growing and losses stay float32, as in the JAX package.  A
+ResNet's frozen BN statistics are buffers of the module (the JAX step's
+``extra_vars``): they move with it and no step changes them.
+Data-parallel training waits for the port's ``parallel`` modules.
 """
 
 from __future__ import annotations
@@ -38,25 +42,31 @@ from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_step
 from dsrg_tpu_torch.train.train_state import TrainState
 
 
-def _device_normalize(images: torch.Tensor) -> torch.Tensor:
-    """f32 mean-subtracted images as they are; raw uint8 BGR minus the VOC mean."""
+def _device_normalize(images: torch.Tensor, mean=BGR_MEAN) -> torch.Tensor:
+    """f32 mean-subtracted images as they are; raw uint8 BGR minus ``mean``
+    (the VOC mean by default)."""
     if images.dtype == torch.uint8:
-        return images.float() - torch.as_tensor(BGR_MEAN, device=images.device)
+        return images.float() - torch.as_tensor(mean, dtype=torch.float32, device=images.device)
     return images.float()
 
 
 def init_params(model: nn.Module, seed: int) -> None:
-    """Initialise ``model`` in place with the JAX package's distributions:
-    flax ``nn.Conv``'s default lecun-normal (truncated at 2 sigma, fan-in
-    scaled) for the convolutions, normal(0.01) for the ``fc8`` heads, zero
-    biases.  The draws come from a CPU generator seeded with ``seed``, so
-    the weights are the same on every device; they are not JAX's draws."""
+    """Initialise ``model`` in place with the distributions of flax's
+    ``model.init``: lecun-normal (truncated at 2 sigma, fan-in scaled) for
+    the convolutions, normal(0.01) for the heads (``fc8*``, ``fc1_voc12*``),
+    zero biases; a batch norm's scale 1 and offset 0, its running mean 0 and
+    variance 1.  The draws come from a CPU generator seeded with ``seed``,
+    so the weights are the same on every device; they are not JAX's draws."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
+        for name, buf in model.named_buffers():
+            buf.fill_(1.0 if name.endswith("running_var") else 0.0)
         for name, p in model.named_parameters():
             if name.endswith(".bias"):
                 val = torch.zeros(p.shape)
-            elif name.startswith("fc8"):
+            elif p.ndim == 1:  # a batch norm's scale
+                val = torch.ones(p.shape)
+            elif name.startswith(("fc8", "fc1_voc12")):
                 val = torch.empty(p.shape).normal_(0.0, 0.01, generator=gen)
             else:
                 # .87962566103423978 is the std of a unit normal truncated at +-2
@@ -99,11 +109,13 @@ def init_stage1(model: nn.Module, cfg: Stage1Config, device=None) -> TrainState:
 
 
 def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
-                     generator: Optional[torch.Generator] = None) -> Callable[[dict], dict]:
+                     generator: Optional[torch.Generator] = None,
+                     input_mean=BGR_MEAN) -> Callable[[dict], dict]:
     """Build ``step(batch) -> metrics``, which trains ``model`` in place.
 
     ``batch``: a dict of tensors or arrays with
-      images: (B, H, W, 3) f32 mean-subtracted BGR, or raw uint8 BGR
+      images: (B, H, W, 3) f32 mean-subtracted BGR, or raw uint8 BGR from
+        which the step subtracts ``input_mean`` (BGR channel means)
       labels: (B, M) multi-hot image labels (bit 0 = background, always 1)
       cues:   (B, h, w, M) {0, 1} seed cues at score resolution (f32 or uint8)
       pad_mask: optional (B,) {1, 0}; rows marked 0 contribute nothing to
@@ -124,7 +136,7 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
         def get(key):
             return torch.as_tensor(batch[key], device=device)
 
-        images = _device_normalize(get("images"))
+        images = _device_normalize(get("images"), input_mean)
         labels = get("labels").float()
         cues = get("cues").float()
         b = images.shape[0]

@@ -6,11 +6,13 @@ image and label map, VGG16-LargeFOV with dropout, ``Interp`` shrink x8 of
 the label map, ``SoftmaxWithLoss`` with ignore label 255 normalised by the
 valid pixel count, ``SegAccuracy``; Caffe SGD with the poly rate
 (``solver-f.prototxt``).  The backward routes the max pools through the
-``pool_bwd_h`` / ``pool_bwd_w`` kernels, 5 + 5 launches per step.
+``pool_bwd_h`` / ``pool_bwd_w`` kernels, 5 + 5 launches per step (1 + 1
+for the ResNet-101 family, whose one max pool is ``pool1``).
 
 As in stage 1 the step runs on the model's device, parity with the JAX
-package needs TF32 off on the card, and ``cfg.compute_dtype`` must be the
-model's.
+package needs TF32 off on the card, ``cfg.compute_dtype`` must be the
+model's, and a ResNet's frozen BN statistics travel as the module's
+buffers.
 """
 
 from __future__ import annotations

@@ -36,7 +36,8 @@ from dsrg_tpu_torch.tools import evaluate, generate_train_gt, run_recipe, synth_
 from dsrg_tpu_torch.train import checkpoint as ckpt
 from dsrg_tpu_torch.utils import watchdog
 
-TOOLS = ("train", "test", "test_ms", "test_ms_f", "evaluate", "generate_train_gt", "run_recipe", "synth_check")
+TOOLS = ("train", "test", "test_ms", "test_ms_f", "evaluate", "generate_train_gt", "run_recipe", "synth_check",
+         "calibrate_bn")
 
 
 @pytest.fixture(autouse=True)
@@ -102,12 +103,9 @@ def test_every_cli_takes_help(name, capsys):
 
 @pytest.mark.parametrize("tool,argv,item", [
     (train, ["--stage", "s", "--dataset", "coco"], 4),
-    (train, ["--stage", "s", "--model", "resnet101"], 7),
-    (train, ["--stage", "s", "--weights", "imagenet.caffemodel"], 7),
     (train, ["--stage", "s", "--num-processes", "2"], 8),
     (train, ["--stage", "f", "--coordinator", "localhost:1234"], 8),
     (test_ms, ["--images", "x", "--dir", "y", "--model", "z", "--mesh"], 8),
-    (test_ms_f, ["--images", "x", "--dir", "y", "--model", "z", "--model-name", "resnet101"], 7),
     (generate_train_gt, ["--images", "x", "--dir", "y", "--model", "z", "--cues", "c", "--mesh"], 8),
     (synth_check, ["--work-dir", "w", "--dataset", "coco"], 4),
 ])

@@ -386,6 +386,70 @@ def test_stage1_bf16_step_card_matches_cpu(cuda):
     assert out["cuda"]["seed_pixels"] == out["cpu"]["seed_pixels"]
 
 
+# ResNet-101's pool1 (3x3/2/1 over (B, 64, 161, 161) at a 321^2 crop) at the
+# stage-1 batch, in both element types: integer inputs full of ties, normal
+# cotangents (only the tap order gives the plain version's bits), and NaN /
+# +-inf in inputs and cotangents
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernels_at_resnet_pool1_match_plain(cuda, dtype, special):
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.ops.pooling import _caffe_pool_geometry
+
+    b, c, h = 20, 64, 161
+    ho, _ = _caffe_pool_geometry(h, 3, 2, 1)
+    gen = torch.Generator(device=cuda).manual_seed(int(special))
+    x = torch.randint(0, 3, (b, c, h, h), generator=gen, device=cuda).to(dtype)
+    yw = torch.randint(0, 3, (b, c, h, ho), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((b, c, ho, ho), generator=gen, device=cuda).to(dtype)
+    gw = torch.randn((b, c, h, ho), generator=gen, device=cuda).to(dtype)
+    if special:
+        for t, shares in ((x, (0.05, 0.1, 0.3)), (yw, (0.05, 0.1, 0.3)), (g, (0.02,) * 3), (gw, (0.02,) * 3)):
+            for value, share in zip((float("nan"), float("inf"), float("-inf")), shares):
+                t[torch.rand(t.shape, generator=gen, device=cuda) < share] = value
+    got_h, got_w = pk.pool_bwd_h(yw, g, 3, 2, 1), pk.pool_bwd_w(x, gw, 3, 2, 1)
+    torch.cuda.synchronize()
+    for got, ref in ((got_h, pk.pool_bwd_h_plain(yw, g, 3, 2, 1)), (got_w, pk.pool_bwd_w_plain(x, gw, 3, 2, 1))):
+        assert got.dtype == dtype
+        if special:  # NaN payloads may differ
+            assert torch.allclose(got.float(), ref.float(), rtol=0.0, atol=0.0, equal_nan=True)
+        else:
+            assert torch.equal(got, ref)
+
+
+def test_resnet_stage1_step_card_matches_cpu(cuda):
+    """One tiny ResNet stage-1 step (random BN statistics, the ResNet warm
+    start's solver) from the same weights on the card (pool kernels, 1 + 1
+    launches) and on the CPU (plain versions), to 1e-3."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.models import ResNet101DeepLab
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
+
+    rng = np.random.default_rng(7)
+    cfg = Stage1Config(num_classes=6, batch_size=2, crop_size=41, cue_size=6, crf_iters=2, mirror=False,
+                       base_lr=1e-4, clip_gradients=10.0)
+    labels = np.zeros((2, 6), np.float32)
+    labels[:, 0] = labels[0, 2] = labels[1, 4] = 1.0
+    batch = {"images": (rng.normal(size=(2, 41, 41, 3)) * 40).astype(np.float32), "labels": labels,
+             "cues": (rng.uniform(size=(2, 6, 6, 6)) < 0.1).astype(np.float32) * labels[:, None, None, :]}
+    model = ResNet101DeepLab(num_classes=6, stage_blocks=(1, 1, 2, 1), head_dilations=(2, 4))
+    stats = {k: torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+             for k, v in model.state_dict().items() if "running" in k}
+    out = {}
+    for dev in (cuda, "cpu"):
+        model = ResNet101DeepLab(num_classes=6, stage_blocks=(1, 1, 2, 1), head_dilations=(2, 4))
+        state = init_stage1(model, cfg, device=dev)
+        model.load_state_dict({**model.state_dict(), **stats})
+        h0, w0 = pk.pool_bwd_h.launches, pk.pool_bwd_w.launches
+        m = make_stage1_step(model, cfg, state.optimizer, state.generator)(batch)
+        out[str(dev)] = {k: v.item() for k, v in m.items()}
+        assert (pk.pool_bwd_h.launches - h0, pk.pool_bwd_w.launches - w0) == ((1, 1) if dev == cuda else (0, 0))
+    for key in ("loss", "loss_seed", "loss_constrain", "grad_norm"):
+        assert abs(out["cuda"][key] - out["cpu"][key]) <= 1e-3 * abs(out["cpu"][key]), key
+    assert out["cuda"]["seed_pixels"] == out["cpu"]["seed_pixels"]
+
+
 def test_prefetch_loader_to_the_card_equals_cpu(cuda):
     """Batches copied on the loader's own stream (pinned memory, an event the
     consumer waits on) equal the CPU loader's, and a step-sized use right

@@ -61,6 +61,13 @@ def test_masking_matches_jax():
     v = np.array([1.0, 8.0, 41.0, 321.0], np.float32)
     np.testing.assert_array_equal(tmask.pool_out_extent(torch.from_numpy(v)).numpy(),
                                   np.asarray(jmask.pool_out_extent(jnp.asarray(v))))
+    for k, s, p in ((7, 2, 3), (1, 2, 0), (3, 1, 1)):  # the ResNet's conv1, its strided 1x1s, a 3x3
+        np.testing.assert_array_equal(tmask.conv_out_extent(torch.from_numpy(v), k, s, p).numpy(),
+                                      np.asarray(jmask.conv_out_extent(jnp.asarray(v), k, s, p)))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    np.testing.assert_array_equal(
+        tmask.mask_nchw(xt, torch.from_numpy(vh), torch.from_numpy(vw)).permute(0, 2, 3, 1).numpy(),
+        np.asarray(jmask.apply_valid_mask(jnp.asarray(x), jnp.asarray(vh), jnp.asarray(vw))))
 
 
 def _models(m=6, heads=(2, 4), size=65):

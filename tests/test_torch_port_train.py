@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from dsrg_tpu.config import Stage1Config as JaxStage1Config
+from dsrg_tpu.data.coco import COCO_MEAN
 from dsrg_tpu.losses import balanced_seed_loss as j_balanced_seed_loss
 from dsrg_tpu.losses import constrain_loss as j_constrain_loss
 from dsrg_tpu.losses import seed_loss as j_seed_loss
@@ -448,6 +449,28 @@ def test_stage1_uint8_batch_matches_f32():
         results.append({k: v.item() for k, v in
                         make_stage1_step(model, cfg, state.optimizer, state.generator)(b).items()})
     assert results[0] == results[1]
+
+
+def test_stage1_uint8_batch_with_another_mean_matches_jax():
+    """``input_mean``: raw uint8 BGR minus a non-VOC mean (COCO's), as JAX's
+    step subtracts it; the VOC default gives another step."""
+    batch = _step_batch(np.random.default_rng(15))
+    raw = {**batch, "images": np.random.default_rng(16).integers(0, 256, batch["images"].shape).astype(np.uint8)}
+    jstate, _ = _jax_state_after_one_step(batch)
+    cfg = JaxStage1Config(**STEP_CFG)
+    model = JaxLargeFOV(num_classes=NC, head_dilations=HEADS, dropout_rate=0.0)
+    jstep = jax.jit(j_make_stage1_step(model, cfg, j_make_optimizer(cfg), input_mean=COCO_MEAN))
+    _, jm = jstep(jstate, raw)
+    metrics = []
+    for mean in (COCO_MEAN, None):
+        state, _ = _port_state(jstate)
+        kw = {} if mean is None else {"input_mean": mean}
+        metrics.append(make_stage1_step(state.model, Stage1Config(**STEP_CFG), state.optimizer, state.generator,
+                                        **kw)(raw))
+    for key in ("loss", "loss_seed", "loss_constrain", "grad_norm"):
+        np.testing.assert_allclose(metrics[0][key].item(), float(jm[key]), rtol=1e-4, err_msg=key)
+    assert metrics[0]["seed_pixels"].item() == float(jm["seed_pixels"])
+    assert metrics[1]["loss"].item() != metrics[0]["loss"].item()
 
 
 def test_stage1_pad_mask_reproduces_unpadded_step():
