@@ -12,9 +12,11 @@ Phases, each fatal on failure:
      on a photo-like guide and, at C = 21, on a pixel-noise guide (no two
      pixels of a tile share their colour bins), and on a small
      ``spatial_exact`` plan (corner-scaled r weights), each launched twice
-     for equal bits; timed beside the plain version, ``torch.bmm`` on the
-     dense operands and the card's bound for the bytes the sparse kernel
-     must move; the plan's build time and that of the dense operands; then
+     for equal bits; timed (launches queued behind a spin of the card:
+     device time) beside the plain version, ``torch.bmm`` on the dense
+     operands and the card's bound for the bytes the sparse kernel must
+     move; the plan's build time and that of the dense operands (issued to
+     an idle card: the host's work included); then
      at the pseudo ground truth's shapes: one unmasked 500x375 image (130
      tiles, fewer than the card's 132 SMs) and ``predict_masks``' CRF batch
      (4 images on a 512x384 canvas, values masked to the images);
@@ -24,14 +26,19 @@ Phases, each fatal on failure:
      (the error must be 0, and ATen's routing must agree), with
      normal-distributed cotangents (equal bits: only the sum over taps in
      the order t = 0..k-1 gives them) and with NaN and +-inf in inputs and
-     cotangents; timed the same way, with the bytes moved, the achieved
-     GB/s, each block's shared memory, and (batch 20) pool1 at other tile
-     sizes; the kernels' line reports batch 20; then the same checks and
-     times for the kernels' bfloat16 versions (bf16 inputs and cotangents,
-     bits equal to the plain versions, which round after every add), and
+     cotangents; timed the same way (the kernels also from the host's
+     launch rate), with the bytes moved, the achieved GB/s, each block's
+     shared memory, and (batch 20) pool1 and pool4 at
+     other tile sizes; the kernels' line reports batch 20; then the same
+     checks and times for the kernels' bfloat16 versions (bf16 inputs and
+     cotangents, -0 and subnormals among the normal ones, bits equal to the
+     plain versions, which round after every add; each time beside its
+     bound and the former design's times, and pool4/5 also
+     with the L2 flushed before every launch, as a step finds them), and
      each pool's forward with implicit padding beside the former form that
-     padded two -inf copies; then the same checks and times at ResNet-101's
-     pool1 (3x3/2/1 over (B, 64, 161, 161)) at batch 20 and 10, fp32 and bf16;
+     padded two -inf copies (issued to an idle card); then the same checks
+     and times at ResNet-101's pool1 (3x3/2/1 over (B, 64, 161, 161)) at
+     batch 20 and 10, fp32 and bf16;
   5. the serving path: ``Predictor.predict_masks_device`` with the 21-class,
      4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
      500x375 images, in sizes mode (241, 321, 401) and in scales mode
@@ -161,6 +168,17 @@ LEARN_TRAIN, LEARN_VAL, LEARN_ITERS, LEARN_BATCH, LEARN_MIOU = 64, 16, 300, 8, 0
 LEARN_SIZE = 321  # image, crop and prediction size; cues on its (size - 1) / 8 + 1 grid
 GT_SIZES = (321,)  # tools/generate_train_gt.py:48-54
 STAGE2_BATCH = 10
+# the bf16 pool kernels' ms per step with their former design, the float32
+# blocks on bf16 elements (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W):
+# (net, batch) -> kernel -> (two readings timed as the kernel rows are now,
+# queued, on one card beside the new design; the time as first recorded,
+# from the host's launch rate)
+FORMER_BF16_STEP_MS = {
+    ("VGG", 20): {"pool_bwd_h": ((0.5273, 0.5299), 0.547), "pool_bwd_w": ((0.8412, 0.8469), 0.865)},
+    ("VGG", 10): {"pool_bwd_h": ((0.2962, 0.2983), 0.3089), "pool_bwd_w": ((0.4616, 0.4644), 0.4769)},
+    ("ResNet-101", 20): {"pool_bwd_h": ((0.0590, 0.0592), 0.0632), "pool_bwd_w": ((0.1069, 0.1073), 0.1094)},
+    ("ResNet-101", 10): {"pool_bwd_h": ((0.0342, 0.0345), 0.0365), "pool_bwd_w": ((0.0617, 0.0621), 0.0646)},
+}
 BN_RANGE = "frozen_batch_norm"  # the profiler range of the ResNet's batch norm (models/resnet101_deeplab.py)
 
 
@@ -176,10 +194,15 @@ def _ptxas_summary(log: str) -> list:
     registers, static shared memory and spills."""
     out = []
     for entry, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=ptxas info\s*: Compil|\Z)", log, re.S):
-        kernel = re.search(r"\d+([a-z_]+_kernel)(.*)", entry)
-        name, rest = (kernel.group(1), kernel.group(2)) if kernel else (entry, "")
-        targs = ",".join((["bf16" if "bfloat16" in rest else "f32"] if "_kernelI" in entry and "pool" in name
-                          else []) + re.findall(r"L[ib](\d+)E", rest.split("Ev")[0]))
+        name, rest = entry, ""
+        for m in re.finditer(r"(?<!\d)(\d+)(?=[A-Za-z_])", entry):  # <length><identifier>, as mangled
+            ident = entry[m.end(): m.end() + int(m.group(1))]
+            if ident.endswith("_kernel"):
+                name, rest = ident, entry[m.end() + len(ident):]
+                break
+        targs = ",".join((["bf16" if "bfloat16" in rest or "bf16" in name else "f32"]
+                          if "_kernelI" in entry and "pool" in name else [])
+                         + re.findall(r"L[ib](\d+)E", rest.split("Ev")[0]))
         used = re.search(r"Used (\d+) registers", body)
         smem = re.search(r"(\d+) bytes smem", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
@@ -189,10 +212,36 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
-def _time_ms(fn, iters: int) -> float:
+def _time_ms_cold(fn, iters: int, flush: torch.Tensor) -> float:
+    """Device ms per call of ``fn``, each launch finding the L2 cache holding
+    ``flush`` (written just before it, which keeps the card busy while the
+    host issues the launch) instead of its own inputs; only the launch is
+    timed."""
+    fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        pair = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        pair[0].record()
+        fn()
+        pair[1].record()
+        events.append(pair)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
+def _time_ms(fn, iters: int, queued: bool = False) -> float:
+    """Ms per call of ``fn``, averaged over ``iters`` calls between two events
+    on the card. By default the calls are issued to an idle card, so a call
+    that is shorter than its host work reads the host's launch rate. With
+    ``queued`` they wait behind a ~25 ms spin of the card and run back to
+    back: device time only, the host's launch overhead (tens of us a wrapper
+    call) hidden. The kernel rows of phases 3-4 are timed queued."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -307,9 +356,9 @@ def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels, valid=None) -> t
         }
         for name, (kern, plain, lib, io_bytes, dense_io_bytes) in cases.items():
             err = _hold(f"{name} C={c}, {what} guide", kern, plain)
-            ms = _time_ms(kern, 20)
-            plain_ms = _time_ms(plain, 3)
-            lib_ms = _time_ms(lib, 10)
+            ms = _time_ms(kern, 20, queued=True)
+            plain_ms = _time_ms(plain, 3, queued=True)
+            lib_ms = _time_ms(lib, 10, queued=True)
             by_bytes, by_ops = (weights + io_bytes) / PEAK_BYTES, sparse_flop / PEAK_FP32
             bound_by = "bytes" if by_bytes > by_ops else "operations"
             bound_ms = 1e3 * max(by_bytes, by_ops)
@@ -396,8 +445,10 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
     def normal(shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "op_bound_ms")
+    keys = ("ms", "launch_ms", "plain_ms", "library_ms", "bound_ms", "op_bound_ms")
     sums = {n: dict.fromkeys(keys, 0.0) for n in ("pool_bwd_h", "pool_bwd_w")}
+    # 256 MB, five L2s, written before each launch of the timing with the L2 flushed
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev) if dtype == BF16 and pools is POOLS else None
     err = {n: 0.0 for n in sums}
     forward = {"ms": 0.0, "former_ms": 0.0, "pad_ms": 0.0}
     for i, (c, h, w, s) in enumerate(pools, 1):
@@ -415,8 +466,9 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
         g_lib = torch.nn.functional.pad(g, (0, 0, 0, y_full.shape[2] - ho))
         gw_lib = torch.nn.functional.pad(gw, (0, yw_full.shape[3] - wo))
         aten_bwd = torch.ops.aten.max_pool2d_with_indices_backward
-        plans = {"pool_bwd_h": pk.plan_h(batch * c, h, wo, ho, 3, s, 1, pk.TILE_BYTES, elem),
-                 "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo, pk.TILE_BYTES, elem)}
+        plans = {"pool_bwd_h": pk.plan_h(batch * c, h, wo, ho, 3, s, 1, pk.default_tile_bytes("pool_bwd_h", dtype),
+                                         elem),
+                 "pool_bwd_w": pk.plan_w(x[..., 0].numel(), w, wo, pk.default_tile_bytes("pool_bwd_w", dtype), elem)}
         # (wrapper, plain version, pass input, integer cotangent, ATen call, crop of its result)
         cases = {
             "pool_bwd_h": (pk.pool_bwd_h, pk.pool_bwd_h_plain, yw, g,
@@ -440,7 +492,7 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
         forward["former_ms"] += former
         forward["pad_ms"] += pads
         for name, (wrapper, plain_fn, src, cot, lib, crop) in cases.items():
-            def kern(tile_bytes=pk.TILE_BYTES):
+            def kern(tile_bytes=None):
                 return wrapper(src, cot, 3, s, 1, tile_bytes)
 
             def plain():
@@ -456,7 +508,13 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
             # (and, in bf16, its rounding after every add); then NaN and +-inf in the
             # input (5%, 10%, 30%) and in the cotangent (2% each)
             fcot = normal(cot.shape)
-            floats = torch.equal(wrapper(src, fcot, 3, s, 1), plain_fn(src, fcot, 3, s, 1))
+            if dtype == BF16:  # -0 and subnormals (multiples of 2^-133) among them
+                fcot[torch.rand(fcot.shape, generator=gen, device=dev) < 0.05] = -0.0
+                tiny = torch.rand(fcot.shape, generator=gen, device=dev) < 0.05
+                fcot[tiny] = (torch.randint(-127, 128, fcot.shape, generator=gen, device=dev).float()
+                              * 2.0 ** -133).to(dtype)[tiny]
+            floats = torch.equal(wrapper(src, fcot, 3, s, 1).view(torch.int16 if dtype == BF16 else torch.int32),
+                                 plain_fn(src, fcot, 3, s, 1).view(torch.int16 if dtype == BF16 else torch.int32))
             ssrc, scot = _with_specials(src, gen, (0.05, 0.1, 0.3)), _with_specials(fcot, gen, (0.02, 0.02, 0.02))
             sgot, sref = wrapper(ssrc, scot, 3, s, 1), plain_fn(ssrc, scot, 3, s, 1)
             specials = torch.allclose(sgot, sref, rtol=0.0, atol=0.0, equal_nan=True)
@@ -470,20 +528,28 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
                 raise SystemExit(f"{label} disagrees with its plain version or with ATen at pool{i}")
             err[name] = max(err[name], e)
             del got, again, ref, lib_out, fcot, ssrc, scot, sgot, sref
-            row = dict(ms=_time_ms(kern, 20), plain_ms=_time_ms(plain, 3), library_ms=_time_ms(lib, 20),
+            row = dict(ms=_time_ms(kern, 20, queued=True), launch_ms=_time_ms(kern, 20),
+                       plain_ms=_time_ms(plain, 3, queued=True), library_ms=_time_ms(lib, 20, queued=True),
                        bound_ms=1e3 * n_bytes / PEAK_BYTES,
                        # per window k compares for its first maximum, per output element up to k gathered taps
                        op_bound_ms=1e3 * (cot.numel() * 3 + src.numel() * 3) / PEAK_FP32)
-            print(f"{net} pool{i} {label} (batch {batch}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            print(f"{net} pool{i} {label} (batch {batch}): kernel {row['ms']:.4f} ms "
+                  f"({row['ms'] / max(row['bound_ms'], row['op_bound_ms']):.2f}x bound; {row['launch_ms']:.4f} ms "
+                  f"from the host's launch rate), plain {row['plain_ms']:.4f} ms, "
                   f"ATen max_pool2d_with_indices_backward {row['library_ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms (bytes: {n_bytes / 1e6:.1f} MB; operations "
                   f"{row['op_bound_ms']:.4f} ms); {n_bytes / row['ms'] / 1e6:.1f} GB/s; blocks of "
                   f"{plan.rows} rows x {plan.planes} planes, {plan.smem} bytes of shared memory", flush=True)
-            if i in (1, 4) and batch == TRAIN_BATCH and dtype == torch.float32 and pools is POOLS:
+            if i in (1, 4) and batch == TRAIN_BATCH and pools is POOLS:
                 # the largest pool and a one-band one at other tile sizes
-                other = {t: _time_ms(lambda: kern(t), 20) for t in (pk.TILE_BYTES // 2, pk.TILE_BYTES * 2)}
-                print(f"pool{i} {name} at other tile sizes: "
+                tile = pk.default_tile_bytes(name, dtype)
+                other = {t: _time_ms(lambda: kern(t), 20, queued=True) for t in (tile // 2, tile * 2)}
+                print(f"pool{i} {label} at other tile sizes: "
                       + ", ".join(f"{t} bytes {ms:.4f} ms" for t, ms in other.items()), flush=True)
+            if i in (4, 5) and dtype == BF16 and pools is POOLS:
+                # 103 MB a launch, two L2s: timed again as a step finds them, its L2 full of other data
+                print(f"{net} pool{i} {label} (batch {batch}) with the L2 flushed before each launch: "
+                      f"{_time_ms_cold(kern, 20, flush):.4f} ms", flush=True)
             for k in keys:
                 sums[name][k] += row[k]
         del x, xp, yw_full, idx_w, yw, ywp, y_full, idx_h, g, gw, g_lib, gw_lib, cases
@@ -493,9 +559,15 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
           f"with implicit padding; the former form {forward['former_ms']:.4f} ms, of which the F.pad copies to "
           f"-inf {forward['pad_ms']:.4f} ms", flush=True)
     rows = {}
+    del flush
     for name, tot in sums.items():
+        bound = max(tot["bound_ms"], tot["op_bound_ms"])
+        former = FORMER_BF16_STEP_MS.get((net, batch), {}).get(name) if dtype == BF16 else None
+        before = (f"; the former design {' / '.join(map(str, former[0]))} ms queued on one card beside this "
+                  f"design's, {former[1]} ms as recorded from the launch rate" if former else "")
         print(f"{net}: {name + sfx} over the {len(pools)} pool(s) of a step at batch {batch}: kernel "
-              f"{tot['ms']:.4f} ms, plain "
+              f"{tot['ms']:.4f} ms queued ({tot['ms'] / bound:.2f}x bound), {tot['launch_ms']:.4f} ms from the "
+              f"host's launch rate{before}; plain "
               f"{tot['plain_ms']:.4f} ms, ATen {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms",
               flush=True)
         per = {k: v / len(pools) for k, v in tot.items()}

@@ -45,12 +45,26 @@
 //     shared memory for 16-byte stores was no faster at any pool).
 // Threads walk a tile by flat position with row and column as loop
 // variables (one division per thread, none per element); a tile's base is
-// 64-bit, offsets inside it are 32-bit.  Element type, stride and window
-// are template arguments (T = float, bfloat16; s = 1, 2; k = 3).  Loads
-// overlap stores across the blocks that are resident on an SM (tiles of
-// ~32 KB, 256 threads), not inside a block.
+// 64-bit, offsets inside it are 32-bit.  Stride and window are template
+// arguments (s = 1, 2; k = 3).  Loads overlap stores across the blocks that
+// are resident on an SM (tiles of ~32 KB, 256 threads), not inside a block.
+//
+// bfloat16 (pool_bwd_h_bf16) has a block of its own: the same bands and
+// staging, but half the bytes per element leave half the instructions per
+// element, so the element-by-element passes above would be bound by
+// instruction issue.
+// A thread owns a run of RUN rows of two neighbouring columns
+// (pool_runs.cuh): the rows its windows reach are loaded once into
+// registers as packed pairs, each window's first maximum is found once for
+// the run, and the cotangents are added in packed bfloat16 in tap order, in
+// one pass without tap bytes or a barrier between passes.  The runs write
+// the band's rows into shared memory laid out as the output, which leaves
+// in 16-byte stores.  Runs start at the band's first row; bands are
+// multiples of RUN rows (plan_h), so a band's runs are whole but at the
+// plane's end.
 
 #include "pool_route.cuh"
+#include "pool_runs.cuh"
 
 namespace {
 
@@ -167,6 +181,172 @@ int run(const void* yw, const void* g, void* out, int n, int h, int wo, int ho, 
 #undef POOL_BWD_H
 }
 
+
+// ---- bfloat16 -------------------------------------------------------------
+
+using namespace pool_runs;
+
+// One run of the bfloat16 block: rows j0 .. j0 + RUN - 1 of columns col and
+// col + 1 of one plane (sy, sg, so: the plane's staged rows, windows and
+// routed rows).  Whole runs inside the band's staged rows and windows load
+// and store without tests; the others (at a plane's ends, or past the end
+// of a band that is no multiple of RUN rows) test every row and window.
+template <int S, int K, int PHI>
+__device__ __forceinline__ void run_h(const unsigned short* sy, const unsigned short* sg, unsigned short* so,
+                                      const Band& t, int wo, int p, int j0, int col) {
+  using R = RunGeom<S, K, PHI>;
+  const int o0 = (j0 + p - PHI) / S;
+  const unsigned short* ys = sy + (j0 - t.y_lo) * wo + col;
+  const unsigned short* gs = sg + (o0 - t.o_lo) * wo + col;
+  unsigned short* os = so + (j0 - t.j0) * wo + col;
+  auto g_in = [&](int m) { return pack2(gs[m * wo], gs[m * wo + 1]); };
+  if (j0 + RUN <= t.j1 && col + 1 < wo && j0 + R::LO >= t.y_lo && j0 + R::LO + R::NV <= t.y_hi &&
+      o0 + R::M_MIN >= t.o_lo && o0 + R::M_MAX < t.o_hi) {
+    route_run<S, K, PHI>(
+        [&](int d, unsigned& v, unsigned& ok) {
+          v = pack2(ys[d * wo], ys[d * wo + 1]);
+          ok = ~0u;
+        },
+        g_in,
+        [&](int e, unsigned a) {
+          os[e * wo] = (unsigned short)a;
+          os[e * wo + 1] = (unsigned short)(a >> 16);
+        });
+  } else {
+    const int n_rows = t.j1 - j0;
+    const bool hi = col + 1 < wo;  // else the pair's second lane holds no column of the plane
+    route_run<S, K, PHI>(
+        [&](int d, unsigned& v, unsigned& ok) {
+          const bool in = j0 + d >= t.y_lo && j0 + d < t.y_hi;
+          const unsigned a = pack2(ys[(in ? d : t.y_lo - j0) * wo], ys[(in ? d : t.y_lo - j0) * wo + 1]);
+          v = in ? a : NEG_INF2;
+          ok = in ? ~0u : 0u;
+        },
+        [&](int m) {
+          const bool in = o0 + m >= t.o_lo && o0 + m < t.o_hi;
+          const unsigned a = g_in(in ? m : t.o_lo - o0);
+          return in ? a : 0u;
+        },
+        [&](int e, unsigned a) {
+          if (e < n_rows) {
+            os[e * wo] = (unsigned short)a;
+            if (hi) os[e * wo + 1] = (unsigned short)(a >> 16);
+          }
+        });
+  }
+}
+
+// S, K: the stride and the window of the runs, or 0 for any (then every
+// element is routed alone, route_direct).
+template <int S, int K>
+__global__ void __launch_bounds__(THREADS)
+    pool_bwd_h_bf16_kernel(const __nv_bfloat16* __restrict__ yw, const __nv_bfloat16* __restrict__ g,
+                           __nv_bfloat16* __restrict__ out, int n, int h, int wo, int ho, int k, int s, int p,
+                           int jb, int n_bands, int pb, int off_g, int off_out) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int tid = threadIdx.x;
+  const int group = blockIdx.x / n_bands;
+  const size_t n0 = (size_t)group * pb;
+  const int np = n - n0 < (size_t)pb ? (int)(n - n0) : pb;
+  const Band t = band_of((int)blockIdx.x - group * n_bands, jb, h, ho, k, s, p);
+  const int y_plane = h * wo, g_plane = ho * wo;
+  const __nv_bfloat16* sy = smem + stage_span(smem, yw + (n0 * h + t.y_lo) * wo,
+                                              (np - 1) * y_plane + (t.y_hi - t.y_lo) * wo, tid);
+  const __nv_bfloat16* sg = smem + off_g + stage_span(smem + off_g, g + (n0 * ho + t.o_lo) * wo,
+                                                      (np - 1) * g_plane + (t.o_hi - t.o_lo) * wo, tid);
+  __nv_bfloat16* dst = out + (n0 * h + t.j0) * wo;
+  __nv_bfloat16* so = smem + off_out + lead_of(dst);
+  cp_async_wait_all();
+  __syncthreads();
+
+  if constexpr (S > 0 && K > 0) {
+    // runs: plane q, run σ of the band, column pair; pairs fastest
+    const int n_runs = (t.j1 - t.j0 + RUN - 1) / RUN;
+    const int n_pairs = (wo + 1) / 2;
+    const int phi = S > 1 ? (t.j0 + p) % S : 0;  // the same for every run of the band
+    Walk it(tid, n_pairs);
+    int q = 0, run = it.row;  // it.row = q * n_runs + run, kept without a division per item
+    while (run >= n_runs) run -= n_runs, ++q;
+    for (int f = tid; f < np * n_runs * n_pairs; f += THREADS) {
+      const int j0 = t.j0 + run * RUN;
+      // a plane's last pair of an odd width overlaps the one before it
+      const int col = wo > 1 && 2 * it.col > wo - 2 ? wo - 2 : 2 * it.col;
+      const auto* ys = reinterpret_cast<const unsigned short*>(sy) + q * y_plane;
+      const auto* gs = reinterpret_cast<const unsigned short*>(sg) + q * g_plane;
+      auto* os = reinterpret_cast<unsigned short*>(so) + q * y_plane;
+      if (phi == 0)
+        run_h<S, K, 0>(ys, gs, os, t, wo, p, j0, col);
+      else
+        run_h<S, K, (S > 1 ? 1 : 0)>(ys, gs, os, t, wo, p, j0, col);
+      const int row = it.row;
+      it.next();
+      for (run += it.row - row; run >= n_runs; run -= n_runs) ++q;
+    }
+  } else {
+    const int n_el = (t.j1 - t.j0) * wo;
+    const Walk first(tid, wo);
+    for (int q = 0; q < np; ++q) {
+      Walk el = first;
+      for (int f = tid; f < n_el; f += THREADS, el.next())
+        so[q * y_plane + f] = route_direct<K>(sy + q * y_plane + el.col, wo, t.y_lo, h, sg + q * g_plane + el.col,
+                                              wo, t.o_lo, ho, t.j0 + el.row, p, k, s);
+    }
+  }
+  __syncthreads();
+  unstage_span(dst, smem + off_out, (np - 1) * y_plane + (t.j1 - t.j0) * wo, tid);
+}
+
+template <int S, int K>
+int launch_bf16(const __nv_bfloat16* yw, const __nv_bfloat16* g, __nv_bfloat16* out, int n, int h, int wo,
+                int ho, int k, int s, int p, int jb, int pb, int n_bands, int off_g, int off_out, int smem,
+                cudaStream_t stream) {
+  auto kernel = pool_bwd_h_bf16_kernel<S, K>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  kernel<<<(n + pb - 1) / pb * n_bands, THREADS, smem, stream>>>(yw, g, out, n, h, wo, ho, k, s, p, jb,
+                                                                 n_bands, pb, off_g, off_out);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 layout: the staged rows of yw at element 0, the windows of g
+// at off_g, the band's routed rows at off_out, each with room for any lead.
+int run_bf16(const void* yw, const void* g, void* out, int n, int h, int wo, int ho, int k, int s, int p,
+             int jb, int pb, int off_g, int off_out, int smem, void* stream) {
+  using T = __nv_bfloat16;
+  constexpr int V = vec<T>();
+  if (n <= 0 || h <= 0 || wo <= 0 || ho <= 0 || k <= 0 || k > KMAX || s <= 0 || p < 0 || p >= k ||
+      jb <= 0 || pb <= 0 || off_g % V || off_out % V || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int n_bands = (h + jb - 1) / jb;
+  if ((long)((n + pb - 1) / pb) * n_bands > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < n_bands; ++b) {
+    const Band t = band_of(b, jb, h, ho, k, s, p);
+    if (pb > 1 && (n_bands > 1 || t.o_lo != 0 || t.o_hi != ho)) return (int)cudaErrorInvalidValue;
+    const long n_win = ((long)(pb - 1) * ho + t.o_hi - t.o_lo) * wo;
+    const long n_y = ((long)(pb - 1) * h + t.y_hi - t.y_lo) * wo;
+    const long n_out = ((long)(pb - 1) * h + t.j1 - t.j0) * wo;
+    // (a run of a plane one column wide reads one element past a span: the
+    // next span's, unused)
+    if (span_room<T>(n_y) > off_g || off_g + span_room<T>(n_win) > off_out ||
+        (long)sizeof(T) * (off_out + span_room<T>(n_out)) > smem)
+      return (int)cudaErrorInvalidValue;
+  }
+  const auto* a = (const T*)yw;
+  const auto* b = (const T*)g;
+  auto* o = (T*)out;
+  const auto st = (cudaStream_t)stream;
+#define POOL_BWD_H_BF16(S, K) \
+  launch_bf16<S, K>(a, b, o, n, h, wo, ho, k, s, p, jb, pb, n_bands, off_g, off_out, smem, st)
+  if (k == 3 && s == 1) return POOL_BWD_H_BF16(1, 3);
+  if (k == 3 && s == 2) return POOL_BWD_H_BF16(2, 3);
+  return k == 3 ? POOL_BWD_H_BF16(0, 3) : POOL_BWD_H_BF16(0, 0);
+#undef POOL_BWD_H_BF16
+}
+
 }  // namespace
 
 // Return the CUDA error code of the launch (0 on success; invalid value for
@@ -174,8 +354,9 @@ int run(const void* yw, const void* g, void* out, int n, int h, int wo, int ho, 
 // and out are contiguous, float (pool_bwd_h) or bfloat16 (pool_bwd_h_bf16);
 // a block takes jb rows of each of pb planes (pb > 1 only with jb = h and
 // every window reaching into the plane), with the cotangent rows at element
-// off_g and the taps at element off_tap of smem bytes of shared memory, as
-// plan_h lays them out.
+// off_g and, in float, the taps at element off_tap (in bfloat16 the routed
+// rows at element off_out) of smem bytes of shared memory, as plan_h lays
+// them out.
 extern "C" int pool_bwd_h(const void* yw, const void* g, void* out, int n, int h, int wo, int ho,
                           int k, int s, int p, int jb, int pb, int off_g, int off_tap, int smem,
                           void* stream) {
@@ -183,7 +364,7 @@ extern "C" int pool_bwd_h(const void* yw, const void* g, void* out, int n, int h
 }
 
 extern "C" int pool_bwd_h_bf16(const void* yw, const void* g, void* out, int n, int h, int wo,
-                               int ho, int k, int s, int p, int jb, int pb, int off_g, int off_tap,
+                               int ho, int k, int s, int p, int jb, int pb, int off_g, int off_out,
                                int smem, void* stream) {
-  return run<__nv_bfloat16>(yw, g, out, n, h, wo, ho, k, s, p, jb, pb, off_g, off_tap, smem, stream);
+  return run_bf16(yw, g, out, n, h, wo, ho, k, s, p, jb, pb, off_g, off_out, smem, stream);
 }

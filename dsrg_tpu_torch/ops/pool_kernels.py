@@ -18,13 +18,18 @@ Tensors are NCHW: the H pass routes along dim 2 against the W-pooled
 
 A kernel's block owns a tile that the routing never leaves and that is one
 contiguous span of each tensor: whole rows in the W pass, a band of rows of
-one plane with its halo in the H pass.  It stages the spans in shared memory,
-finds every window's first maximum once and then gathers per element.  The
-tiles are planned here (:func:`plan_h`, :func:`plan_w`) and handed to the
-kernels as integers, so that the geometry can be tested without a card.
-Each source builds both element types: the C entry points ``pool_bwd_h`` /
-``pool_bwd_w`` take float32, ``pool_bwd_h_bf16`` / ``pool_bwd_w_bf16``
-bfloat16, and a tile of the same bytes holds twice as many bfloat16 elements.
+one plane with its halo in the H pass.  It stages the spans in shared memory.
+In float32 (C entry points ``pool_bwd_h`` / ``pool_bwd_w``) the block finds
+every window's first maximum once, one tap byte per window, and then gathers
+per element.  In bfloat16 (``pool_bwd_h_bf16`` / ``pool_bwd_w_bf16``,
+``csrc/pool_runs.cuh``) a thread owns a run of :data:`RUN` positions along
+the routing axis of two lines at once, computes the run's windows in packed
+bfloat16 registers and writes the routed tile to shared memory laid out as
+the output, which leaves in 16-byte stores; its tiles hold the routed output
+instead of tap bytes, and the H pass's bands are multiples of :data:`RUN`
+rows.  The tiles are planned here (:func:`plan_h`, :func:`plan_w`) and handed
+to the kernels as integers, so that the geometry can be tested without a
+card.
 
 A wrapper runs the plain PyTorch version only for tensors on the CPU; a CUDA
 tensor launches the kernel of its dtype, and anything else raises.
@@ -47,24 +52,37 @@ from dsrg_tpu_torch._device import kernel_device
 ENTRY_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 KMAX = 4  # the kernels' largest window (csrc/pool_route.cuh); the plain versions take any
 SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90 (227 KB)
-# Shared memory a tile aims for.  Six such blocks of 256 threads are resident
-# on an SM (227 KB), and the loads of some run under the stores of others.
-# ``chip_smoke.py`` phase 4 times pool1 and pool4 at half and at twice this
-# size as well.
+# Shared memory a float32 tile aims for.  Six such blocks of 256 threads are
+# resident on an SM (227 KB), and the loads of some run under the stores of
+# others.  The bfloat16 blocks hold their routed output too; their sizes
+# were chosen by timing 16-96 KB tiles at the stage-1 step's pools on an H100
+# (PERF.md), and the W pass needs 56 KB for W_ROWS rows of 321.
+# ``chip_smoke.py`` phase 4 times pool1 and pool4 at half and at twice the
+# default of each element type as well.
 TILE_BYTES = 32 * 1024
+TILE_BYTES_BF16 = {"pool_bwd_h": 48 * 1024, "pool_bwd_w": 56 * 1024}
+# Copies of the bfloat16 blocks' run geometry, which the CPU tests hold equal to
+# the sources': positions of a thread's run along the routing axis
+# (``RUN``, csrc/pool_runs.cuh), and the multiple of rows that a W block holds,
+# so that its warps meet no shared-memory bank twice (``W_ROWS``,
+# csrc/pool_bwd_w.cu, which gives the reason).
+RUN = 8
+W_ROWS = 32
 
 
 class TilePlan(NamedTuple):
     """How a pass is cut into blocks, and a block's shared memory: the span of
-    the pass input at element 0, of the cotangent at element ``off_g``, one
-    byte per window at element ``off_tap``, ``smem`` bytes in all."""
+    the pass input at element 0, of the cotangent at element ``off_g``, then
+    in float32 one byte per window at element ``off_tap``, in bfloat16 the
+    span of the routed output at element ``off_out``; ``smem`` bytes in all."""
 
     rows: int  # output rows per block: of a plane's band (H), of the flat row axis (W)
     tiles: int  # bands per plane (H), blocks in all (W)
     off_g: int
-    off_tap: int
+    off_tap: int  # float32; 0 in bfloat16
     smem: int
     planes: int = 1  # H: whole planes per block where several fit (then one band)
+    off_out: int = 0  # bfloat16; 0 in float32
 
 
 def span_room(n: int, elem: int = 4) -> int:
@@ -75,10 +93,15 @@ def span_room(n: int, elem: int = 4) -> int:
     return (n + 2 * (vec - 1)) // vec * vec
 
 
-def _layout(rows: int, tiles: int, n_in: int, n_win: int, elem: int = 4) -> TilePlan:
+def _layout(rows: int, tiles: int, n_in: int, n_win: int, elem: int = 4, n_out: int = 0) -> TilePlan:
+    """The three spans of a block's shared memory: the pass input, the
+    cotangent, then the tap bytes (``elem`` 4) or the ``n_out`` routed
+    elements (``elem`` 2)."""
     off_g = span_room(n_in, elem)
-    off_tap = off_g + span_room(n_win, elem)
-    return TilePlan(rows, tiles, off_g, off_tap, elem * off_tap + (n_win + 15) // 16 * 16)
+    off_3 = off_g + span_room(n_win, elem)
+    if elem == 2:
+        return TilePlan(rows, tiles, off_g, 0, elem * (off_3 + span_room(n_out, elem)), off_out=off_3)
+    return TilePlan(rows, tiles, off_g, off_3, elem * off_3 + (n_win + 15) // 16 * 16)
 
 
 def h_band(b: int, jb: int, h: int, ho: int, k: int, s: int, p: int):
@@ -96,7 +119,8 @@ def _plan_h_bands(jb: int, h: int, wo: int, ho: int, k: int, s: int, p: int, ele
     n_bands = -(-h // jb)
     bands = [h_band(b, jb, h, ho, k, s, p) for b in range(n_bands)]
     return _layout(jb, n_bands, max(y_hi - y_lo for _, _, y_lo, y_hi, _, _ in bands) * wo,
-                   max(o_hi - o_lo for *_, o_lo, o_hi in bands) * wo, elem)
+                   max(o_hi - o_lo for *_, o_lo, o_hi in bands) * wo, elem,
+                   max(j1 - j0 for j0, j1, *_ in bands) * wo)
 
 
 @functools.lru_cache(maxsize=256)
@@ -105,20 +129,28 @@ def plan_h(n: int, h: int, wo: int, ho: int, k: int, s: int, p: int,
     """Tiles of the H pass over ``n`` planes (h, wo) -> (ho, wo) of
     ``elem``-byte elements: the fewest bands whose shared memory stays
     within ``tile_bytes``, of equal height but for the last (a band of one
-    row where even that is larger); where a whole plane fits, as many planes
-    as fit (their rows are one span as long as every window reaches into
-    its plane, as Caffe's do)."""
-    jb = next((j for j in range(h, 1, -1)
-               if _plan_h_bands(j, h, wo, ho, k, s, p, elem).smem <= tile_bytes), 1)
-    plan = _plan_h_bands(-(-h // -(-h // jb)), h, wo, ho, k, s, p, elem)
+    row where even that is larger; in bfloat16 a multiple of :data:`RUN`
+    rows where one fits, so that the runs of a band are whole); where a
+    whole plane fits, as many planes as fit (their rows are one span as long
+    as every window reaches into its plane, as Caffe's do)."""
+    def fits(j):
+        return _plan_h_bands(j, h, wo, ho, k, s, p, elem).smem <= tile_bytes
+
+    step = RUN if elem == 2 and fits(min(RUN, h)) else 1
+    jb = next((j for j in range(-(-h // step) * step, step, -step) if fits(j)), step)
+    jb = -(-h // -(-h // jb))  # the same bands, of equal height
+    plan = _plan_h_bands(-(-jb // step) * step, h, wo, ho, k, s, p, elem)
     if plan.smem > SMEM_MAX:
         raise ValueError(f"pool_bwd_h: one row of {wo} elements with its windows needs {plan.smem} "
                          f"bytes of shared memory, over the card's {SMEM_MAX}")
     if plan.tiles == 1 and h_band(0, h, h, ho, k, s, p)[4:] == (0, ho):
+        def whole(pb):
+            return _layout(h, 1, pb * h * wo, pb * ho * wo, elem, pb * h * wo)._replace(planes=pb)
+
         pb = 1
-        while pb < n and _layout(h, 1, (pb + 1) * h * wo, (pb + 1) * ho * wo, elem).smem <= tile_bytes:
+        while pb < n and whole(pb + 1).smem <= tile_bytes:
             pb += 1
-        plan = _layout(h, 1, pb * h * wo, pb * ho * wo, elem)._replace(planes=pb)
+        plan = whole(pb)
     return plan
 
 
@@ -126,11 +158,15 @@ def plan_h(n: int, h: int, wo: int, ho: int, k: int, s: int, p: int,
 def plan_w(rows: int, w: int, wo: int, tile_bytes: int = TILE_BYTES, elem: int = 4) -> TilePlan:
     """Blocks of whole rows of the W pass over ``rows`` rows w -> wo of
     ``elem``-byte elements: as many rows as stay within ``tile_bytes``, at
-    least one."""
-    rb = max(min(tile_bytes // (elem * w + (elem + 1) * wo), rows), 1)
-    while rb > 1 and _layout(rb, 0, rb * w, rb * wo, elem).smem > tile_bytes:
+    least one; in bfloat16 a multiple of :data:`W_ROWS` rows where that many
+    fit (16 row pairs: the block's warps then meet no bank twice)."""
+    per_row = 2 * elem * w + elem * wo if elem == 2 else elem * w + (elem + 1) * wo
+    rb = max(min(tile_bytes // per_row, rows), 1)
+    while rb > 1 and _layout(rb, 0, rb * w, rb * wo, elem, rb * w).smem > tile_bytes:
         rb -= 1
-    plan = _layout(rb, -(-rows // rb), rb * w, rb * wo, elem)
+    if elem == 2 and W_ROWS <= rb < rows:
+        rb -= rb % W_ROWS
+    plan = _layout(rb, -(-rows // rb), rb * w, rb * wo, elem, rb * w)
     if plan.smem > SMEM_MAX:
         raise ValueError(f"pool_bwd_w: one row of {w} elements with its windows needs {plan.smem} "
                          f"bytes of shared memory, over the card's {SMEM_MAX}")
@@ -173,6 +209,12 @@ def pool_bwd_w_plain(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int) 
     return _route_last(x, gw, k, s, p)
 
 
+def default_tile_bytes(kernel: str, dtype: torch.dtype) -> int:
+    """The shared memory a block of ``kernel`` ("pool_bwd_h" or "pool_bwd_w")
+    aims for in ``dtype``."""
+    return TILE_BYTES_BF16[kernel] if dtype == torch.bfloat16 else TILE_BYTES
+
+
 def _check(name: str, x: torch.Tensor, shape, device, dtype) -> None:
     if dtype not in ENTRY_SUFFIX:
         raise TypeError(f"the pool kernels take {' or '.join(map(str, ENTRY_SUFFIX))}, got {dtype}")
@@ -192,9 +234,10 @@ def _check_geometry(k: int, s: int, p: int, on_card: bool) -> None:
 
 
 def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int,
-               tile_bytes: int = TILE_BYTES) -> torch.Tensor:
+               tile_bytes: int | None = None) -> torch.Tensor:
     """Route ``g`` along H against ``yw``; see :func:`pool_bwd_h_plain`.
-    ``tile_bytes``: the shared memory a block of the kernel aims for."""
+    ``tile_bytes``: the shared memory a block of the kernel aims for (by
+    default :func:`default_tile_bytes`)."""
     b, c, h, wo = yw.shape
     ho = g.shape[2]
     _check("yw", yw, (b, c, h, wo), yw.device, g.dtype)
@@ -204,10 +247,11 @@ def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int,
     if not on_card:
         return pool_bwd_h_plain(yw, g, k, s, p)
     out = torch.empty((b, c, h, wo), dtype=g.dtype, device=yw.device)
-    plan = plan_h(b * c, h, wo, ho, k, s, p, tile_bytes, g.element_size())
+    plan = plan_h(b * c, h, wo, ho, k, s, p, tile_bytes or default_tile_bytes("pool_bwd_h", g.dtype),
+                  g.element_size())
     launch("pool_bwd_h", out, ((yw.contiguous(), g.contiguous()),
-                               (b * c, h, wo, ho, k, s, p, plan.rows, plan.planes, plan.off_g, plan.off_tap,
-                                plan.smem)), "pool_bwd_h" + ENTRY_SUFFIX[g.dtype])
+                               (b * c, h, wo, ho, k, s, p, plan.rows, plan.planes, plan.off_g,
+                                plan.off_out or plan.off_tap, plan.smem)), "pool_bwd_h" + ENTRY_SUFFIX[g.dtype])
     if g.dtype == torch.bfloat16:
         pool_bwd_h.launches_bf16 += 1
     else:
@@ -216,9 +260,10 @@ def pool_bwd_h(yw: torch.Tensor, g: torch.Tensor, k: int, s: int, p: int,
 
 
 def pool_bwd_w(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int,
-               tile_bytes: int = TILE_BYTES) -> torch.Tensor:
+               tile_bytes: int | None = None) -> torch.Tensor:
     """Route ``gw`` along W against ``x``; see :func:`pool_bwd_w_plain`.
-    ``tile_bytes``: the shared memory a block of the kernel aims for."""
+    ``tile_bytes``: the shared memory a block of the kernel aims for (by
+    default :func:`default_tile_bytes`)."""
     b, c, h, w = x.shape
     wo = gw.shape[3]
     _check("x", x, (b, c, h, w), x.device, gw.dtype)
@@ -228,9 +273,10 @@ def pool_bwd_w(x: torch.Tensor, gw: torch.Tensor, k: int, s: int, p: int,
     if not on_card:
         return pool_bwd_w_plain(x, gw, k, s, p)
     out = torch.empty((b, c, h, w), dtype=gw.dtype, device=x.device)
-    plan = plan_w(b * c * h, w, wo, tile_bytes, gw.element_size())
+    plan = plan_w(b * c * h, w, wo, tile_bytes or default_tile_bytes("pool_bwd_w", gw.dtype), gw.element_size())
     launch("pool_bwd_w", out, ((x.contiguous(), gw.contiguous()),
-                               (b * c * h, w, wo, k, s, p, plan.rows, plan.off_g, plan.off_tap, plan.smem)),
+                               (b * c * h, w, wo, k, s, p, plan.rows, plan.off_g, plan.off_out or plan.off_tap,
+                                plan.smem)),
            "pool_bwd_w" + ENTRY_SUFFIX[gw.dtype])
     if gw.dtype == torch.bfloat16:
         pool_bwd_w.launches_bf16 += 1

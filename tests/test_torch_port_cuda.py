@@ -304,25 +304,41 @@ def test_stage2_step_card_matches_cpu(cuda):
 
 # the bf16 kernels at the tiles' edges: tile sizes that cut several bands and
 # ragged last blocks (a tile of the same bytes holds twice as many bf16
-# elements), storage offsets of 0..7 elements, NaN and +-inf; their bits are
-# the plain versions', which round to bf16 after every add
+# elements), storage offsets of 0..7 elements, NaN and +-inf; widths 1-9 and
+# 15-17 around a run of 8 (the columns of the H pass's pairs, the W pass's
+# run overhanging a row's end), at both strides; every lead 0..7 of both
+# inputs at pool2's plane; tiles too small for a run's rows, whose bands end
+# runs mid-run; the 41^2 s = 1 planes whole at stage 2's batch of 10 (x 32
+# channels).  The cotangents hold -0 and subnormals besides normal values.
+# Their bits are the plain versions', which round to bf16 after every add.
+BF16_CASES = [
+    (2, 321, 321, 3, 2, 1, None, (0, 0)), (2, 161, 161, 3, 2, 1, None, (5, 3)), (2, 41, 41, 3, 1, 1, None, (7, 1)),
+    (2, 41, 41, 3, 1, 1, 65536, (1, 6)), (2, 37, 45, 3, 2, 1, 512, (0, 0)), (2, 38, 29, 3, 2, 1, 512, (3, 2)),
+    (2, 41, 41, 3, 1, 1, 512, (1, 1)), (2, 1, 3, 3, 2, 1, None, (7, 1)), (2, 2, 1, 3, 1, 1, None, (2, 3)),
+    (2, 19, 70, 3, 1, 1, 512, (4, 3)), (2, 23, 31, 2, 2, 0, 512, (2, 2)), (2, 26, 33, 4, 3, 2, 512, (3, 0)),
+] + [(2, 13, w, 3, s, 1, None, (w % 8, (3 * w + 1) % 8)) for s in (1, 2) for w in (*range(1, 10), 15, 16, 17)] + [
+    (2, 161, 161, 3, 2, 1, None, (lead, (3 * lead + 5) % 8)) for lead in range(8)] + [
+    (2, 45, 21, 3, 2, 1, 256, (1, 4)), (2, 29, 17, 3, 1, 1, 256, (6, 3)), (10, 41, 41, 3, 1, 1, None, (0, 0))]
+
+
 @pytest.mark.parametrize("special", [False, True])
-@pytest.mark.parametrize("h,w,k,s,p,tile,leads", [
-    (321, 321, 3, 2, 1, None, (0, 0)), (161, 161, 3, 2, 1, None, (5, 3)), (41, 41, 3, 1, 1, None, (7, 1)),
-    (41, 41, 3, 1, 1, 65536, (1, 6)), (37, 45, 3, 2, 1, 512, (0, 0)), (38, 29, 3, 2, 1, 512, (3, 2)),
-    (41, 41, 3, 1, 1, 512, (1, 1)), (1, 3, 3, 2, 1, None, (7, 1)), (2, 1, 3, 1, 1, None, (2, 3)),
-    (19, 70, 3, 1, 1, 512, (4, 3)), (23, 31, 2, 2, 0, 512, (2, 2)), (26, 33, 4, 3, 2, 512, (3, 0))])
-def test_pool_kernels_bf16_match_plain(cuda, h, w, k, s, p, tile, leads, special):
+@pytest.mark.parametrize("batch,h,w,k,s,p,tile,leads", BF16_CASES)
+def test_pool_kernels_bf16_match_plain(cuda, batch, h, w, k, s, p, tile, leads, special):
     from dsrg_tpu_torch.ops import pool_kernels as pk
     from dsrg_tpu_torch.ops.pooling import _caffe_pool_geometry
 
     ho, _ = _caffe_pool_geometry(h, k, s, p)
     wo, _ = _caffe_pool_geometry(w, k, s, p)
+    c = 32 if batch > 2 else 3
     rng = np.random.default_rng(h * w + s + special)
-    x = rng.integers(0, 3, (2, 3, h, w)).astype(np.float32)
-    yw = rng.integers(0, 3, (2, 3, h, wo)).astype(np.float32)
-    g = rng.normal(size=(2, 3, ho, wo)).astype(np.float32)
-    gw = rng.normal(size=(2, 3, h, wo)).astype(np.float32)
+    x = rng.integers(0, 3, (batch, c, h, w)).astype(np.float32)
+    yw = rng.integers(0, 3, (batch, c, h, wo)).astype(np.float32)
+    g = rng.normal(size=(batch, c, ho, wo)).astype(np.float32)
+    gw = rng.normal(size=(batch, c, h, wo)).astype(np.float32)
+    for a in (g, gw):
+        a[rng.random(a.shape) < 0.1] = -0.0
+        tiny = rng.random(a.shape) < 0.1  # bf16 subnormals: multiples of 2^-133 below 2^-126
+        a[tiny] = rng.integers(-127, 128, tiny.sum()) * np.float32(2.0 ** -133)
     if special:
         for a, shares in ((x, (0.05, 0.1, 0.3)), (yw, (0.05, 0.1, 0.3)), (g, (0.02,) * 3), (gw, (0.02,) * 3)):
             for value, share in zip((np.nan, np.inf, -np.inf), shares):
@@ -338,8 +354,10 @@ def test_pool_kernels_bf16_match_plain(cuda, h, w, k, s, p, tile, leads, special
     assert x.data_ptr() % 16 == 2 * leads[0] and gw.data_ptr() % 16 == 2 * leads[1]
     more = {} if tile is None else {"tile_bytes": tile}
     if tile is not None and tile < 8192 and h > 4:
-        assert (pk.plan_h(6, h, wo, ho, k, s, p, tile, 2).tiles > 1
-                and pk.plan_w(6 * h, w, wo, tile, 2).tiles > 1)
+        assert (pk.plan_h(batch * c, h, wo, ho, k, s, p, tile, 2).tiles > 1
+                and pk.plan_w(batch * c * h, w, wo, tile, 2).tiles > 1)
+    if tile == 256:  # bands shorter than a run
+        assert pk.plan_h(batch * c, h, wo, ho, k, s, p, tile, 2).rows < pk.RUN
     counts = (pk.pool_bwd_h.launches, pk.pool_bwd_h.launches_bf16)
     got_h, got_w = pk.pool_bwd_h(yw, g, k, s, p, **more), pk.pool_bwd_w(x, gw, k, s, p, **more)
     torch.cuda.synchronize()
@@ -348,6 +366,8 @@ def test_pool_kernels_bf16_match_plain(cuda, h, w, k, s, p, tile, leads, special
         assert got.dtype == torch.bfloat16
         if special:  # NaN payloads may differ
             assert torch.allclose(got.float(), ref.float(), rtol=0.0, atol=0.0, equal_nan=True)
+            nan = torch.isnan(ref)
+            assert torch.equal(got.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])
         else:
             assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
 
@@ -403,6 +423,11 @@ def test_pool_kernels_at_resnet_pool1_match_plain(cuda, dtype, special):
     yw = torch.randint(0, 3, (b, c, h, ho), generator=gen, device=cuda).to(dtype)
     g = torch.randn((b, c, ho, ho), generator=gen, device=cuda).to(dtype)
     gw = torch.randn((b, c, h, ho), generator=gen, device=cuda).to(dtype)
+    for t in (g, gw):  # -0 and subnormals of the dtype among the cotangents
+        t[torch.rand(t.shape, generator=gen, device=cuda) < 0.1] = -0.0
+        tiny = torch.rand(t.shape, generator=gen, device=cuda) < 0.1
+        t[tiny] = (torch.randint(-127, 128, t.shape, generator=gen, device=cuda).float()
+                   * torch.finfo(dtype).smallest_normal / 128).to(dtype)[tiny]
     if special:
         for t, shares in ((x, (0.05, 0.1, 0.3)), (yw, (0.05, 0.1, 0.3)), (g, (0.02,) * 3), (gw, (0.02,) * 3)):
             for value, share in zip((float("nan"), float("inf"), float("-inf")), shares):
@@ -413,8 +438,11 @@ def test_pool_kernels_at_resnet_pool1_match_plain(cuda, dtype, special):
         assert got.dtype == dtype
         if special:  # NaN payloads may differ
             assert torch.allclose(got.float(), ref.float(), rtol=0.0, atol=0.0, equal_nan=True)
+            nan = torch.isnan(ref)
+            assert torch.equal(got.float()[~nan].view(torch.int32), ref.float()[~nan].view(torch.int32))
         else:
-            assert torch.equal(got, ref)
+            assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                               ref.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 def test_resnet_stage1_step_card_matches_cpu(cuda):

@@ -4,10 +4,15 @@
 into the tiles that the CUDA kernels' blocks own.  The kernels themselves run
 only on the card (``tests/test_torch_port_cuda.py``); here the plans are
 checked for what the kernels rely on, at both element sizes (float32, 4
-bytes; bfloat16, 2), and a numpy walk over the tiles that does what a block
-does (stage the spans, one first-max tap per window, gather per element) is
-held bit for bit against the plain versions.
+bytes; bfloat16, 2), a numpy walk over the tiles that does what a float32
+block does (stage the spans, one first-max tap per window, gather per
+element) is held bit for bit against the plain versions, and so is a walk
+that does what a bfloat16 block does (runs of ``RUN`` positions along the
+routing axis, each run's windows once, a bfloat16 round after every add).
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,18 +36,23 @@ def _out(size, k, s, p):
     return _caffe_pool_geometry(size, k, s, p)[0]
 
 
-def _check_layout(plan, n_in, n_win, tile_bytes, smallest, elem):
+def _check_layout(plan, n_in, n_win, tile_bytes, smallest, elem, n_out=0):
     """The three buffers of a block's shared memory: 16-byte aligned, room
     for a span that starts 0..vec-1 elements beyond a 16-byte boundary (vec
     = 16 / elem elements per piece), in order, within the plan's bytes;
     within ``tile_bytes`` unless the tile is already the smallest there is,
-    and always within what the card allows."""
+    and always within what the card allows.  The third buffer holds one byte
+    per window in float32 and the ``n_out`` routed elements in bfloat16."""
     vec = 16 // elem
-    assert plan.off_g % vec == 0 and plan.off_tap % vec == 0 and plan.smem % 16 == 0
+    third = plan.off_out if elem == 2 else plan.off_tap
+    assert (plan.off_tap, plan.off_out)[elem == 4] == 0  # the other layout's offset is unused
+    assert plan.off_g % vec == 0 and third % vec == 0 and plan.smem % 16 == 0
     for lead in range(vec):
         assert vec * -(-(lead + n_in) // vec) <= plan.off_g
-        assert plan.off_g + vec * -(-(lead + n_win) // vec) <= plan.off_tap
-    assert elem * plan.off_tap + n_win <= plan.smem <= pk.SMEM_MAX
+        assert plan.off_g + vec * -(-(lead + n_win) // vec) <= third
+        if elem == 2:
+            assert elem * (third + vec * -(-(lead + n_out) // vec)) <= plan.smem
+    assert elem * third + (n_win if elem == 4 else n_out) <= plan.smem <= pk.SMEM_MAX
     assert plan.smem <= tile_bytes or smallest
 
 
@@ -50,14 +60,14 @@ N_PLANES = 7  # not a multiple of the planes per block wherever a block takes se
 
 
 @pytest.mark.parametrize("elem", [4, 2])
-@pytest.mark.parametrize("tile_bytes", [pk.TILE_BYTES, SMALL_TILE])
+@pytest.mark.parametrize("tile_bytes", [pk.TILE_BYTES, SMALL_TILE, *pk.TILE_BYTES_BF16.values()])
 @pytest.mark.parametrize("h,w,k,s,p", POOLS[:4] + RAGGED)
 def test_plan_h_covers_each_row_once(h, w, k, s, p, tile_bytes, elem):
     ho, wo = _out(h, k, s, p), _out(w, k, s, p)
     plan = pk.plan_h(N_PLANES, h, wo, ho, k, s, p, tile_bytes, elem)
     assert plan.tiles == -(-h // plan.rows) and 1 <= plan.planes <= N_PLANES
     covered = np.zeros(h, int)
-    n_in = n_win = 0
+    n_in = n_win = n_out = 0
     for b in range(plan.tiles):
         j0, j1, y_lo, y_hi, o_lo, o_hi = pk.h_band(b, plan.rows, h, ho, k, s, p)
         covered[j0:j1] += 1
@@ -71,18 +81,22 @@ def test_plan_h_covers_each_row_once(h, w, k, s, p, tile_bytes, elem):
             assert (plan.tiles, y_lo, y_hi, o_lo, o_hi) == (1, 0, h, 0, ho)
         n_in = max(n_in, ((plan.planes - 1) * h + y_hi - y_lo) * wo)
         n_win = max(n_win, ((plan.planes - 1) * ho + o_hi - o_lo) * wo)
+        n_out = max(n_out, ((plan.planes - 1) * h + j1 - j0) * wo)
     assert (covered == 1).all()
-    _check_layout(plan, n_in, n_win, tile_bytes, plan.rows == 1, elem)
+    _check_layout(plan, n_in, n_win, tile_bytes, plan.rows == 1, elem, n_out)
+    # bfloat16 bands are whole runs where a run's rows fit: a multiple of RUN rows, or the whole plane
+    step = pk.RUN if elem == 2 and pk._plan_h_bands(min(pk.RUN, h), h, wo, ho, k, s, p, elem).smem <= tile_bytes else 1
+    assert plan.rows % step == 0 or plan.tiles == 1
     if plan.tiles > 1:  # the fewest bands: one fewer would not fit
-        fewer = -(-h // (plan.tiles - 1))
+        fewer = -(-h // (plan.tiles - 1) // step) * step
         assert pk._plan_h_bands(fewer, h, wo, ho, k, s, p, elem).smem > tile_bytes
     elif plan.planes < N_PLANES and pk.h_band(0, h, h, ho, k, s, p)[4:] == (0, ho):  # as many planes as fit
         more = plan.planes + 1
-        assert pk._layout(h, 1, more * h * wo, more * ho * wo, elem).smem > tile_bytes
+        assert pk._layout(h, 1, more * h * wo, more * ho * wo, elem, more * h * wo).smem > tile_bytes
 
 
 @pytest.mark.parametrize("elem", [4, 2])
-@pytest.mark.parametrize("tile_bytes", [pk.TILE_BYTES, SMALL_TILE])
+@pytest.mark.parametrize("tile_bytes", [pk.TILE_BYTES, SMALL_TILE, *pk.TILE_BYTES_BF16.values()])
 @pytest.mark.parametrize("h,w,k,s,p", POOLS[:4] + RAGGED)
 def test_plan_w_covers_each_row_once(h, w, k, s, p, tile_bytes, elem):
     wo = _out(w, k, s, p)
@@ -90,16 +104,20 @@ def test_plan_w_covers_each_row_once(h, w, k, s, p, tile_bytes, elem):
         plan = pk.plan_w(rows, w, wo, tile_bytes, elem)
         assert 1 <= plan.rows <= rows
         assert (plan.tiles - 1) * plan.rows < rows <= plan.tiles * plan.rows
-        _check_layout(plan, plan.rows * w, plan.rows * wo, tile_bytes, plan.rows == 1, elem)
-        if plan.rows < rows:  # as many rows as fit
-            assert pk._layout(0, 0, (plan.rows + 1) * w, (plan.rows + 1) * wo, elem).smem > tile_bytes
+        _check_layout(plan, plan.rows * w, plan.rows * wo, tile_bytes, plan.rows == 1, elem, plan.rows * w)
+        if plan.rows < rows:  # as many rows as fit; in bf16, whole multiples of W_ROWS where those fit
+            step = pk.W_ROWS if elem == 2 and plan.rows >= pk.W_ROWS else 1
+            assert plan.rows % step == 0
+            more = plan.rows + step
+            assert pk._layout(0, 0, more * w, more * wo, elem, more * w).smem > tile_bytes
 
 
 def test_bf16_tiles_hold_twice_the_elements():
-    """A tile of the same bytes: about twice the bf16 rows of pool1's W pass,
-    and fewer bands per plane in its H pass."""
+    """A tile of the same bytes: twice the elements in bf16 at pool1's W pass
+    (which stages its routed output as well: x, gw and gx, against float32's
+    x and gw), and fewer bands per plane in its H pass."""
     f32, bf16 = pk.plan_w(20 * 64 * 321, 321, 161), pk.plan_w(20 * 64 * 321, 321, 161, elem=2)
-    assert bf16.rows >= 2 * f32.rows - 1
+    assert bf16.rows * (2 * 321 + 161) >= 2 * f32.rows * (321 + 161)
     assert pk.plan_h(20 * 64, 321, 161, 161, 3, 2, 1, elem=2).tiles < pk.plan_h(20 * 64, 321, 161, 161, 3, 2, 1).tiles
 
 
@@ -216,3 +234,155 @@ def test_tiled_routing_matches_plain(h, w, k, s, p, special, elem):
     assert h < 8 or plan_w.tiles > 1
     assert torch.equal(got_h, pk.pool_bwd_h_plain(yw, g, k, s, p))
     assert torch.equal(got_w, pk.pool_bwd_w_plain(x, gw, k, s, p))
+
+
+# What a bfloat16 block does (csrc/pool_runs.cuh), in torch on the CPU: runs
+# of RUN positions along the routing axis that start where a band (H) or a row
+# (W) starts, vectorised over the lines the threads pair up; each run loads the
+# positions its windows reach (-inf, and never equal to a maximum, where the
+# tile holds no value: the plane's or row's ends, rows of another band), takes
+# each window's NaN-propagating maximum once, walks the windows from the last
+# to the first so that a position adds its taps in the order t = 0..k-1, adds
+# the cotangent where a tap equals the maximum and no earlier tap does (a bf16
+# add: rounded after every add), and stores the positions that are the
+# block's.  The kernels take this path for k = 3 at s = 1 and 2.
+def _run_geom(s, k, phi):
+    m_min, m_max = -((k - 1 - phi) // s), (pk.RUN - 1 + phi) // s
+    return m_min, m_max, m_min * s - phi  # the windows, and the first position they reach
+
+
+def _route_runs(line, ok, cot, cot_ok, j0, o0, k, s, phi):
+    """One run: ``line(d)`` / ``ok(d)`` the values and the mask at position
+    j0 + d (..., L), ``cot(m)`` / ``cot_ok(m)`` window o0 + m's cotangent.
+    Returns the RUN routed positions."""
+    m_min, m_max, lo = _run_geom(s, k, phi)
+    neg = torch.tensor(float("-inf"), dtype=torch.bfloat16)
+    zero = torch.zeros((), dtype=torch.bfloat16)
+    v = {d: torch.where(ok(d), line(d), neg) for d in range(lo, lo + (m_max - m_min) * s + k)}
+    acc = [None] * pk.RUN
+    for m in range(m_max, m_min - 1, -1):
+        taps = [v[m * s - phi + u] for u in range(k)]
+        mx = taps[0]
+        for t in taps[1:]:
+            mx = torch.maximum(mx, t)  # NaN propagates: a NaN window equals none of its taps
+        g = torch.where(cot_ok(m), cot(m), zero)
+        seen = torch.zeros(mx.shape, dtype=torch.bool)
+        for u, t in enumerate(taps):
+            eq = (t == mx) & ok(m * s - phi + u)
+            e = m * s - phi + u
+            if 0 <= e < pk.RUN:
+                term = torch.where(eq & ~seen, g, zero)
+                acc[e] = term + zero if acc[e] is None else acc[e] + term  # the sum starts at +0
+            seen = seen | eq
+    return acc
+
+
+def _runs_h(yw, g, k, s, p, tile_bytes):
+    b, c, h, wo = yw.shape
+    ho = g.shape[2]
+    n = b * c
+    plan = pk.plan_h(n, h, wo, ho, k, s, p, tile_bytes, 2)
+    yp, gp = yw.reshape(n, h, wo), g.reshape(n, ho, wo)
+    out = torch.full((n, h, wo), float("nan"), dtype=torch.bfloat16)
+    for first in range(0, n, plan.planes):
+        q = slice(first, min(first + plan.planes, n))
+        for band in range(plan.tiles):
+            j0b, j1b, y_lo, y_hi, o_lo, o_hi = pk.h_band(band, plan.rows, h, ho, k, s, p)
+            phi = (j0b + p) % s
+            for j0 in range(j0b, j1b, pk.RUN):  # a band's runs start at its first row
+                o0 = (j0 + p - phi) // s
+                acc = _route_runs(lambda d: yp[q, min(max(j0 + d, 0), h - 1)],
+                                  lambda d: torch.tensor(y_lo <= j0 + d < y_hi),
+                                  lambda m: gp[q, min(max(o0 + m, 0), ho - 1)],
+                                  lambda m: torch.tensor(o_lo <= o0 + m < o_hi), j0, o0, k, s, phi)
+                for e in range(min(pk.RUN, j1b - j0)):
+                    out[q, j0 + e] = acc[e]
+    return out.reshape(b, c, h, wo), plan
+
+
+def _runs_w(x, gw, k, s, p, tile_bytes):
+    w, wo = x.shape[3], gw.shape[3]
+    rows, grows = x.reshape(-1, w), gw.reshape(-1, wo)
+    plan = pk.plan_w(len(rows), w, wo, tile_bytes, 2)
+    out = torch.full(rows.shape, float("nan"), dtype=torch.bfloat16)
+    phi = p % s  # every row's runs start at columns 0, RUN, 2 RUN, ...
+    for j0 in range(0, w, pk.RUN):  # the same runs in every block: rows never share a run
+        o0 = (j0 + p - phi) // s
+        acc = _route_runs(lambda d: rows[:, min(max(j0 + d, 0), w - 1)], lambda d: torch.tensor(0 <= j0 + d < w),
+                          lambda m: grows[:, min(max(o0 + m, 0), wo - 1)],
+                          lambda m: torch.tensor(0 <= o0 + m < wo), j0, o0, k, s, phi)
+        for e in range(min(pk.RUN, w - j0)):
+            out[:, j0 + e] = acc[e]
+    return out.reshape(x.shape), plan
+
+
+def _bf16_cases(h, w, k, s, p, special, planes, seed):
+    """Integer inputs full of ties and normal cotangents, as bf16; ``special``
+    adds NaN and +-inf to both, subnormal and -0 cotangents always."""
+    ho, wo = _out(h, k, s, p), _out(w, k, s, p)
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 3, (1, planes, h, w)).astype(np.float32)
+    yw = rng.integers(0, 3, (1, planes, h, wo)).astype(np.float32)
+    g = rng.normal(size=(1, planes, ho, wo)).astype(np.float32)
+    gw = rng.normal(size=(1, planes, h, wo)).astype(np.float32)
+    for a in (g, gw):
+        a[rng.random(a.shape) < 0.1] = -0.0
+        tiny = rng.random(a.shape) < 0.1  # bf16 subnormals: multiples of 2^-133 below 2^-126
+        a[tiny] = rng.integers(-127, 128, tiny.sum()) * np.float32(2.0 ** -133)
+    if special:
+        for a, shares in ((x, (0.05, 0.1, 0.3)), (yw, (0.05, 0.1, 0.3)), (g, (0.02,) * 3), (gw, (0.02,) * 3)):
+            for value, share in zip((np.nan, np.inf, -np.inf), shares):
+                a[rng.random(a.shape) < share] = value
+    return [torch.from_numpy(a).bfloat16() for a in (x, yw, g, gw)]
+
+
+def _same_bits(got, ref):
+    """Equal bits, NaN for NaN (a NaN's payload is not held)."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int16)[~nan], ref.view(torch.int16)[~nan])
+
+
+# the runs at the stage-1 pools (three planes) and at ragged shapes of the
+# kernels' run path: bands and planes shorter than a run, runs that overhang a
+# plane's or a row's end, widths around a run, a plane of one column; with the
+# default tile, and with small ones that cut several bands (whose last run
+# overhangs the band) and blocks
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("tile_bytes", [pk.TILE_BYTES, 1024])
+@pytest.mark.parametrize("h,w,k,s,p", POOLS[:4] + [(37, 45, 3, 2, 1), (38, 29, 3, 2, 1), (1, 3, 3, 2, 1),
+                                                   (2, 1, 3, 1, 1), (19, 70, 3, 1, 1), (9, 17, 3, 2, 1),
+                                                   (16, 15, 3, 1, 1), (7, 9, 3, 2, 0), (13, 16, 3, 2, 2)])
+def test_bf16_runs_match_plain(h, w, k, s, p, tile_bytes, special):
+    x, yw, g, gw = _bf16_cases(h, w, k, s, p, special, 3 if h > 100 else 5, h * w + s + special)
+    got_h, plan_h = _runs_h(yw, g, k, s, p, tile_bytes)
+    got_w, plan_w = _runs_w(x, gw, k, s, p, tile_bytes)
+    if tile_bytes < 8192 and h > 30:
+        assert plan_h.tiles > 1 and plan_w.tiles > 1
+    _same_bits(got_h, pk.pool_bwd_h_plain(yw, g, k, s, p))
+    _same_bits(got_w, pk.pool_bwd_w_plain(x, gw, k, s, p))
+
+
+def test_bf16_run_geometry():
+    """A run's windows hold every position of the run, and only windows that
+    hold one: at s = 2 five windows over eleven positions, at s = 1 ten over
+    twelve; the positions of window m are m s - phi + u."""
+    for s, k in ((1, 3), (2, 3)):
+        for phi in range(s):
+            m_min, m_max, lo = _run_geom(s, k, phi)
+            held = {m: [m * s - phi + u for u in range(k)] for m in range(m_min, m_max + 1)}
+            assert all(any(0 <= e < pk.RUN for e in pos) for pos in held.values())
+            assert not any(0 <= m * s - phi + u < pk.RUN for m in (m_min - 1, m_max + 1) for u in range(k))
+            assert sorted({e for pos in held.values() for e in pos if 0 <= e < pk.RUN}) == list(range(pk.RUN))
+            assert min(min(pos) for pos in held.values()) == lo
+            assert (m_max - m_min + 1, (m_max - m_min) * s + k) == ({1: (10, 12), 2: (5, 11)}[s])
+
+
+@pytest.mark.parametrize("source,name", [("pool_runs.cuh", "RUN"), ("pool_bwd_w.cu", "W_ROWS")])
+def test_run_geometry_matches_the_cuda_sources(source, name):
+    """The planner's copy of the bfloat16 run geometry is the kernels' own: a
+    RUN that differs would put every band on the slow path, a W_ROWS that
+    differs would break the W block's bank order."""
+    text = (Path(pk.__file__).resolve().parents[1] / "csrc" / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert found == [str(getattr(pk, name))]
