@@ -5,7 +5,8 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; TF32 off (the reference computes fp32);
   2. build every CUDA kernel of the port from ``dsrg_tpu_torch/csrc``, one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and the native engines
+     (``native/*.cpp`` with ``g++``, ``dsrg_tpu_torch/native.py``);
   3. the mmgrid kernels against their plain PyTorch versions on the card, at
      the shapes the serving path gives them (8 images of 500x375 on a
      512x384 canvas: 1040 tiles of 1600 pixels, gc = 21, C = 21 and C = 1)
@@ -121,7 +122,31 @@ Phases, each fatal on failure:
      batch 20 with a snapshot and a resumed second process (the frozen BN
      arrays as the file has them), ``test_ms --model-name resnet101`` (masks
      in range, mmgrid launches), and a full-width ResNet snapshot's size,
-     save and restore times.
+     save and restore times;
+  13. COCO at 81 classes (VGG16-LargeFOV, heads (6, 12, 18, 24)) and the
+     other CRF engines: (a) the mmgrid kernels against their plain versions
+     at a served chunk's shapes for 8 images of 640x480 (COCO's most common
+     size; 1536 tiles of 1600 pixels, gc = 21, C = 81, where the splat
+     takes its unstaged template) on photo-like and pixel-noise guides,
+     uniform and integer values, two launches equal, timed as phase 3 times
+     them (the plain versions in chunks of 128 tiles); (b) the served chunk
+     ``predict_masks_device(sizes=[481], smooth=True)`` on 8 such images:
+     ms/chunk, 11 + 11 launches, no ``dense_operands``, masks uint8 < 81, a
+     profile, a small input card vs CPU; (c) ``COCOCueDataset(ship_uint8=
+     True)`` batches from a PNG-encoded synthetic tree and the default
+     ``Stage1Config`` at 81 classes with ``input_mean=COCO_MEAN`` (batch 20
+     @ 321^2): 2 warm-up and 5 timed steps, 5 + 5 pool launches per step,
+     peak memory, a profile; (d) ``python -m dsrg_tpu_torch.tools.
+     synth_check --dataset coco --image-format png`` (300 iterations at
+     batch 8 on the ``easy`` set at 321, ``test_coco``'s streaming mIoU and
+     ``miou3``, fatal below 0.5), then the train CLI with ``--dataset coco
+     --cache-decoded`` at batch 20 (ms/step beside (c)); (e) ``dump_cues
+     --grow`` from (d)'s snapshot, ``ap`` on its cue pngs and
+     ``show_result --smooth`` on two images, every output read back through
+     ``utils/imageio``; (f) ``neutrality_study.engine_neutrality`` at
+     375x500x21 (mmgrid, lattice and grid on the card against the native
+     permutohedral oracle on the host, fatal below 0.998 agreement) and
+     ``crf_fast_neutrality``.
 Each phase prints its wall time, and the script its total.  The last lines are a JSON line of kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without that line when
 there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
@@ -292,11 +317,23 @@ def _hold(what: str, kern, plain) -> float:
     return err
 
 
-def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels, valid=None) -> tuple:
+def _chunked(fn, n_tiles: int, chunk):
+    """``fn(lo, hi)`` over tiles [lo, hi) in chunks of ``chunk`` tiles, joined
+    (the plain versions are per tile: a chunk bounds their memory)."""
+    if chunk is None:
+        return fn(0, n_tiles)
+    return torch.cat([fn(lo, min(lo + chunk, n_tiles)) for lo in range(0, n_tiles, chunk)])
+
+
+def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels, valid=None, row_c: int = 21,
+                 chunk=None, integer: bool = False) -> tuple:
     """Each mmgrid kernel vs its plain version on a plan of ``guide`` at the
     serving path's shapes, for each channel count; the splat's values zero
     outside ``valid`` (N, H, W) where given, as a masked canvas's are.
-    Returns the kernels' rows at C = 21 and the plan's build time in ms."""
+    ``chunk``: tiles per call of the plain versions and per build of the
+    dense yardstick's operands (COCO's 81 classes would need ~40 GB at
+    once); ``integer``: integer values in [0, 4) instead of uniform ones.
+    Returns the kernels' rows at C = ``row_c`` and the plan's build time in ms."""
     plan = tmm.MMGridPlan(guide, 80.0, 13.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -329,31 +366,50 @@ def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels, valid=None) -> t
           flush=True)
     del cells, bg, lo_r
     rows = {}
+    # a large slab is drawn on the card (4.6 GB of fp32 normals at C = 81)
+    gen = None if chunk is None else torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     for c in channels:
         q = gc * c
-        values = torch.from_numpy(rng.random((t, c, px), dtype=np.float32)).to(dev)
+        if integer:
+            values = torch.from_numpy(rng.integers(0, 4, (t, c, px)).astype(np.float32)).to(dev)
+        else:
+            values = torch.from_numpy(rng.random((t, c, px), dtype=np.float32)).to(dev)
         if valid is not None:
             values = values * plan._tile_cf(plan.pad_cf(valid[:, None].float()))
-        slab = torch.from_numpy(rng.standard_normal((t, nb, q), dtype=np.float32)).to(dev).bfloat16()
-        u = (wr_t.float()[:, :, None, :] * values.bfloat16().float()[:, None]).bfloat16()
-        u = u.reshape(t, q, px).transpose(1, 2).contiguous()
+        if gen is None:
+            slab = torch.from_numpy(rng.standard_normal((t, nb, q), dtype=np.float32)).to(dev).bfloat16()
+        else:
+            slab = torch.randn((t, nb, q), generator=gen, device=dev).bfloat16()
+        u = torch.empty((t, px, q), dtype=torch.bfloat16, device=dev)
+        for lo in range(0, t, chunk or t):
+            hi = min(lo + (chunk or t), t)
+            ut = (wr_t[lo:hi].float()[:, :, None, :] * values[lo:hi].bfloat16().float()[:, None]).bfloat16()
+            u[lo:hi] = ut.reshape(hi - lo, q, px).transpose(1, 2)
+            del ut
         wbg_t = wbg.transpose(1, 2).contiguous()
         gemm_flop = 2.0 * t * px * nb * q  # the dense form multiplies the zeros too
         sparse_flop = 2.0 * t * px * 8 * c  # 4 corners x 2 r bins per pixel and channel, fp32
         weights = 16 * t * px  # idx 4 + wbg4 8 + wr2 4 bytes per pixel
         dense_weights = 2 * t * px * nb + 2 * t * gc * px
+
+        def part(x, lo, hi):
+            return tuple(a[lo:hi] for a in x)
+
         # bytes a kernel must move: its sparse weights, the pixels' order, values
         # in and the fp32 slab out (splat); sparse weights, the reached cells of
         # the bf16 slab in and values out (slice)
         cases = {
             "mmgrid_splat": (
-                lambda: mk.splat(*sparse, values, gc, plan.perm), lambda: mk.splat_plain(*sparse, values, gc),
+                lambda: mk.splat(*sparse, values, gc, plan.perm),
+                lambda: _chunked(lambda lo, hi: mk.splat_plain(*part(sparse, lo, hi), values[lo:hi], gc), t, chunk),
                 lambda: torch.bmm(wbg_t, u), 4 * t * px + 4 * t * c * px + 4 * t * nb * q,
                 4 * t * c * px + 4 * t * nb * q),
             "mmgrid_slice": (
-                lambda: mk.slice(*sparse, slab, gc), lambda: mk.slice_plain(*sparse, slab, gc),
+                lambda: mk.slice(*sparse, slab, gc),
+                lambda: _chunked(lambda lo, hi: mk.slice_plain(*part(sparse, lo, hi), slab[lo:hi], gc), t, chunk),
                 lambda: torch.bmm(wbg, slab), 2 * reached * c + 4 * t * c * px, 2 * t * nb * q + 4 * t * c * px),
         }
+        template = "staged" if mk.splat_staged(px, c) else "unstaged"
         for name, (kern, plain, lib, io_bytes, dense_io_bytes) in cases.items():
             err = _hold(f"{name} C={c}, {what} guide", kern, plain)
             ms = _time_ms(kern, 20, queued=True)
@@ -363,11 +419,13 @@ def _kernel_case(mk, tmm, dev, rng, what: str, guide, channels, valid=None) -> t
             bound_by = "bytes" if by_bytes > by_ops else "operations"
             bound_ms = 1e3 * max(by_bytes, by_ops)
             dense_bound_ms = 1e3 * max((dense_weights + dense_io_bytes) / PEAK_BYTES, gemm_flop / PEAK_BF16)
-            print(f"{name} C={c}, {what} guide: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
+            print(f"{name} C={c}, {what} guide: kernel {ms:.4f} ms ({ms / bound_ms:.2f}x bound"
+                  f"{', splat template ' + template if name == 'mmgrid_splat' else ''}), plain {plain_ms:.4f} ms"
+                  f"{' in chunks of ' + str(chunk) + ' tiles' if chunk else ''}, torch.bmm "
                   f"on the dense operands {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
                   f"{(weights + io_bytes) / 1e6:.1f} MB; the dense form's bound {dense_bound_ms:.4f} "
                   f"ms); {(weights + io_bytes) / ms / 1e9:.3f} TB/s", flush=True)
-            if c == 21:
+            if c == row_c:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=lib_ms)
         del values, slab, u, wbg_t, cases
@@ -1706,6 +1764,283 @@ def _resnet_phase(pk, mk, dev, images, gt_masks, label_sets, out_dir: Path) -> d
     return launches
 
 
+# COCO and the other CRF engines (phase 13): the 81-class path at full width
+COCO_CLASSES = 81
+COCO_H, COCO_W = 480, 640  # COCO's most common image size
+COCO_SIZES = (481,)  # tools/test_coco.py's --sizes default
+COCO_KERNEL_CHUNK = 128  # tiles per call of the plain versions at C = 81
+COCO_CLI_ITERS, COCO_CLI_FIRST, COCO_CLI_LAST = 12, 6, 12
+COCO_SEED_IMAGES = 16  # dump_cues --grow / ap over the first train images
+ENGINE_AGREE = 0.998  # each engine against the native permutohedral oracle
+
+
+def _strs(*argv) -> list:
+    return [str(a) for a in argv]
+
+
+def _coco_kernels(mk, tmm, dev, rng) -> None:
+    """(a) the mmgrid kernels at C = 81 on the tiles of a served chunk of 8
+    640x480 images: photo-like and pixel-noise guides, uniform and integer
+    values; the 1600-pixel tiles take the unstaged splat."""
+    guide = torch.from_numpy(np.stack(_images(rng, N_IMAGES, COCO_H, COCO_W))).to(dev)
+    _kernel_case(mk, tmm, dev, rng, "COCO photo-like", guide, (COCO_CLASSES,), row_c=COCO_CLASSES,
+                 chunk=COCO_KERNEL_CHUNK)
+    _kernel_case(mk, tmm, dev, rng, "COCO photo-like, integer values", guide, (COCO_CLASSES,),
+                 row_c=COCO_CLASSES, chunk=COCO_KERNEL_CHUNK, integer=True)
+    guide = torch.from_numpy(rng.integers(0, 256, (N_IMAGES, COCO_H, COCO_W, 3), dtype=np.uint8)).to(dev)
+    _kernel_case(mk, tmm, dev, rng, "COCO pixel-noise", guide, (COCO_CLASSES,), row_c=COCO_CLASSES,
+                 chunk=COCO_KERNEL_CHUNK)
+
+
+def _coco_serving(mk, dev, rng, out_dir: Path) -> dict:
+    """(b) the 81-class served chunk: ``predict_masks_device(sizes=[481],
+    smooth=True)`` on 8 images of 640x480; 11 + 11 mmgrid launches, no
+    dense operands, masks uint8 < 81, and a small input card vs CPU."""
+    from dsrg_tpu_torch.inference import Predictor
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+
+    model = DeepLabLargeFOV(num_classes=COCO_CLASSES)
+    params = _weights(model, rng)
+    predictor = Predictor(model, params, num_classes=COCO_CLASSES, device=dev)
+    images = _images(rng, N_IMAGES, COCO_H, COCO_W)
+    predictor.predict_masks_device(images, sizes=COCO_SIZES)  # warm-up: cuDNN plans, first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.splat.launches = mk.slice.launches = mk.dense_operands.calls = 0
+    t0 = time.perf_counter()
+    masks = predictor.predict_masks_device(images, sizes=COCO_SIZES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
+    print(f"main path (COCO, sizes {list(COCO_SIZES)}, {COCO_CLASSES} classes, {N_IMAGES} images of "
+          f"{COCO_W}x{COCO_H}): {1e3 * dt:.1f} ms/chunk, {N_IMAGES / dt:.2f} images/s, launches {counts}, "
+          f"dense_operands calls {mk.dense_operands.calls}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if mk.dense_operands.calls:
+        raise SystemExit("COCO: the served chunk built the dense operands on the card")
+    if counts != {"mmgrid_splat": 11, "mmgrid_slice": 11}:
+        raise SystemExit(f"COCO: kernel launches {counts}, expected 11 of each")
+    for im, m in zip(images, masks):
+        if m.shape != im.shape[:2] or m.dtype != np.uint8 or int(m.max()) >= COCO_CLASSES:
+            raise SystemExit(f"COCO: bad mask {m.shape} {m.dtype} max {m.max()}")
+    print(f"  classes present: {len(np.unique(np.concatenate([m.ravel() for m in masks])))}", flush=True)
+    _profile("COCO sizes mode, one chunk", lambda: predictor.predict_masks_device(images, sizes=COCO_SIZES),
+             out_dir / "chip_smoke_coco_profile.txt")
+    small = _images(rng, 2, 72, 96)
+    cpu_pred = Predictor(DeepLabLargeFOV(num_classes=COCO_CLASSES), params, num_classes=COCO_CLASSES, device="cpu")
+    on_card = predictor.predict_masks_device(small, sizes=(57,), canvas_bucket=16)
+    on_cpu = cpu_pred.predict_masks_device(small, sizes=(57,), canvas_bucket=16)
+    agree = min(float((a == b).mean()) for a, b in zip(on_card, on_cpu))
+    print(f"COCO card vs CPU masks (sizes [57], 72x96): agreement {agree:.5f}", flush=True)
+    if agree <= 0.99:
+        raise SystemExit("COCO: the card's masks disagree with the CPU's")
+    predictor.close()
+    del predictor, cpu_pred, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _coco_pairs(root: Path, ids_file: str, out: Path) -> Path:
+    ids = (root / ids_file).read_text().split()
+    out.write_text("".join(f"JPEGImages/{i}.jpg SegmentationClass/{i}.png\n" for i in ids))
+    return out
+
+
+def _coco_step(pk, root: Path, stage1_ms: float, out_dir: Path) -> dict:
+    """(c) COCO stage s in memory: ``COCOCueDataset(ship_uint8=True)``
+    batches of the PNG tree, then the default ``Stage1Config`` at 81 classes
+    with ``input_mean=COCO_MEAN`` (batch 20 @ 321^2, exact CRF at 41^2)."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.data.coco import COCO_MEAN, COCOCueDataset
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.train import stage1
+
+    cfg = Stage1Config(num_classes=COCO_CLASSES)
+    pairs = _coco_pairs(root, "train_aug_id.txt", root / "coco_train_pairs_smoke.txt")
+    ds = COCOCueDataset(str(root) + "/", str(pairs), batch_size=cfg.batch_size,
+                        new_size=(cfg.crop_size, cfg.crop_size), num_classes=COCO_CLASSES, ship_uint8=True)
+    t0 = time.perf_counter()
+    batches = [ds.next_batch() for _ in range(2)]
+    decode_ms = 1e3 * (time.perf_counter() - t0) / 2
+    b = batches[0]
+    print(f"COCO data: batch {cfg.batch_size}: images {b['images'].shape} {b['images'].dtype}, cues "
+          f"{b['cues'].shape} {b['cues'].dtype}, labels {b['labels'].shape}; {decode_ms:.1f} ms/batch to decode "
+          f"(one thread); classes per image {b['labels'].sum(1).tolist()}", flush=True)
+    if b["images"].dtype != np.uint8 or b["cues"].shape != (cfg.batch_size, cfg.cue_size, cfg.cue_size,
+                                                             COCO_CLASSES):
+        raise SystemExit("COCO data: unexpected batch")
+    model = DeepLabLargeFOV(num_classes=COCO_CLASSES)
+    state = stage1.init_stage1(model, cfg)
+    step = stage1.make_stage1_step(model, cfg, state.optimizer, state.generator, input_mean=COCO_MEAN)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    launches = _timed_steps(pk, "COCO stage 1", "fp32", step, batch, cfg.batch_size, out_dir)
+    print(f"  beside the 21-class step of phase 6: {stage1_ms:.1f} ms/step", flush=True)
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _coco_learning(pk, mk, base: Path, logs: Path) -> tuple:
+    """(d) ``synth_check --dataset coco`` (a child process): the easy tree at
+    321 as PNGs, stage s for 300 iterations at batch 8, scored by
+    ``test_coco``'s streaming mIoU and the honest miou3; then the train CLI
+    with ``--dataset coco --cache-decoded`` at batch 20.  Returns the
+    children's launches and the CLI's ms/step."""
+    work = base / "synth"
+    lines = _run_cli("dsrg_tpu_torch.tools.synth_check", [
+        "--work-dir", work, "--dataset", "coco", "--iters", LEARN_ITERS, "--batch-size", LEARN_BATCH,
+        "--size", LEARN_SIZE, "--n-train", LEARN_TRAIN, "--n-val", LEARN_VAL, "--batch", 8,
+        "--image-format", "png"], logs / "synth_check_coco.log")
+    result = json.loads([line for _, line in lines if line.startswith('{"coco_val_miou_refquirk"')][-1])
+    per_phase = _launch_lines(lines)  # the child's counts so far, after the trainer and after test_coco
+    counts = {k: per_phase[-1].get(k, 0) for k in KERNEL_NAMES}
+    rates = [line for _, line in lines if re.match(r"\d+ images in ", line)]
+    print(f"COCO learning check (synth_check --dataset coco, {LEARN_ITERS} iterations at batch {LEARN_BATCH}): "
+          f"{result}; eval {rates}; launches train {per_phase[0]}, test_coco {per_phase[-1]}", flush=True)
+    if per_phase[0].get("pool_bwd_h") != 5 * LEARN_ITERS or per_phase[0].get("pool_bwd_w") != 5 * LEARN_ITERS:
+        raise SystemExit(f"COCO learning check: pool launches {per_phase[0]}")
+    if not result["miou3"] >= LEARN_MIOU:
+        raise SystemExit(f"COCO learning check: miou3 {result['miou3']} below {LEARN_MIOU}")
+    root = work / "data"
+    pairs = _coco_pairs(root, "train_aug_id.txt", root / "coco_cli_pairs.txt")
+    cli = _run_cli("dsrg_tpu_torch.tools.train", [
+        "--stage", "s", "--dataset", "coco", "--root", str(root) + "/", "--pair-list", pairs,
+        "--snapshot-dir", base / "cli", "--max-iter", COCO_CLI_ITERS, "--snapshot-every", COCO_CLI_ITERS,
+        "--display", 2, "--dtype", "float32", "--cache-decoded"], logs / "train_coco_cli.log")
+    ms, ips, ema = _display_ms(cli, COCO_CLI_FIRST, COCO_CLI_LAST, 20)
+    launches = _launch_lines(cli)[-1]
+    for k in KERNEL_NAMES:
+        counts[k] += launches.get(k, 0)
+    cached = sorted(p.name for p in (base / "cli" / "decoded_cache").iterdir())
+    print(f"COCO train CLI (--cache-decoded, batch 20 @ {LEARN_SIZE}^2, fp32): {ms:.1f} ms/step, {ips:.2f} images/s "
+          f"over steps {COCO_CLI_FIRST + 1}-{COCO_CLI_LAST} (display lines); StepTimer EMA {ema} ms/iter; launches "
+          f"{launches}; cache files {cached}", flush=True)
+    if launches["pool_bwd_h"] != 5 * COCO_CLI_ITERS or launches["pool_bwd_w"] != 5 * COCO_CLI_ITERS:
+        raise SystemExit(f"COCO train CLI: pool launches {launches}")
+    return counts, work / "models-coco" / f"step_{LEARN_ITERS}_params", root
+
+
+def _coco_seed_clis(mk, snapshot: Path, root: Path, base: Path) -> dict:
+    """(e) ``dump_cues --grow`` with (d)'s snapshot over the first train
+    images, ``ap`` on its ``_cue.png`` files (ground truth at the cue grid),
+    and ``show_result --smooth`` on two val images; every output read back
+    through ``utils/imageio``.  In this process: returns its mmgrid launches."""
+    from dsrg_tpu_torch.tools import ap, dump_cues, show_result
+    from dsrg_tpu_torch.utils import imageio
+
+    grid = 41  # dump_cues forwards at 321: scores and cues on the 41^2 grid
+    rows = (root / "input_list.txt").read_text().splitlines()[:COCO_SEED_IMAGES]
+    (base / "seed_list.txt").write_text("\n".join(rows) + "\n")
+    ids = [r.split()[0][:-4] for r in rows]
+    (base / "seed_ids.txt").write_text("\n".join(ids) + "\n")
+    gt_small = base / "gt_cue_grid"
+    gt_small.mkdir(parents=True, exist_ok=True)
+    for i in ids:  # the ground truth at the cues' grid (nearest rows and columns: stride 8 at 321)
+        gt = imageio.read_mask(str(root / "SegmentationClass" / f"{i}.png"))
+        rows_, cols = (np.round(np.linspace(0, n - 1, grid)).astype(int) for n in gt.shape)
+        imageio.write_png(gt[np.ix_(rows_, cols)], str(gt_small / f"{i}.png"))
+    t0 = time.perf_counter()
+    dump_cues.main(_strs("--images", base / "seed_list.txt", "--dir", root, "--cues", root / "cues.pickle",
+                         "--output", base / "cues", "--num-classes", COCO_CLASSES, "--grow", "--model", snapshot))
+    dump_s = time.perf_counter() - t0
+    grown = 0
+    for i in ids:
+        m = imageio.read_mask(str(base / "cues" / f"{i}_cue.png"))
+        if m.shape != (grid, grid) or not set(np.unique(m).tolist()) <= set(range(COCO_CLASSES)) | {255}:
+            raise SystemExit(f"dump_cues: bad cue mask {i}: {m.shape} {np.unique(m)}")
+        grown += int((m != 255).sum())
+    miou = ap.main(_strs("--pred", base / "cues", "--gt", gt_small, "--test_ids", base / "seed_ids.txt",
+                         "--save_path", base / "ap.txt", "--class_num", COCO_CLASSES))
+    print(f"dump_cues --grow: {len(ids)} images in {dump_s:.2f} s, {grown / len(ids):.1f} of {grid * grid} cells "
+          f"seeded per image; ap: {(base / 'ap.txt').read_text().splitlines()[1]}, meanIOU {miou:.4f}", flush=True)
+    if not np.isfinite(miou):
+        raise SystemExit("ap: no mean IoU")
+
+    val = (root / "val_id.txt").read_text().split()[:2]
+    (base / "show_ids.txt").write_text("\n".join(val) + "\n")
+    s0, l0 = mk.splat.launches, mk.slice.launches
+    t0 = time.perf_counter()
+    show_result.main(_strs("--images", base / "show_ids.txt", "--dir", root, "--model", snapshot, "--output",
+                           base / "show", "--num-classes", COCO_CLASSES, "--gt", root / "SegmentationClass",
+                           "--smooth", "--save-probs"))
+    show_s = time.perf_counter() - t0
+    counts = {"mmgrid_splat": mk.splat.launches - s0, "mmgrid_slice": mk.slice.launches - l0}
+    for i in val:
+        vis = imageio.read_image_rgb(str(base / "show" / f"{i}_vis.png"))
+        mask = imageio.read_mask(str(base / "show" / f"{i}.png"))
+        probs = np.load(base / "show" / f"{i}.npy")
+        if (vis.shape != (LEARN_SIZE, 3 * LEARN_SIZE, 3) or mask.shape != (LEARN_SIZE, LEARN_SIZE)
+                or int(mask.max()) >= COCO_CLASSES or probs.shape != (LEARN_SIZE, LEARN_SIZE, COCO_CLASSES)
+                or not np.isfinite(probs).all()):
+            raise SystemExit(f"show_result: bad outputs for {i}: {vis.shape} {mask.shape} {probs.shape}")
+    print(f"show_result --smooth: {len(val)} images in {show_s:.2f} s, panels {vis.shape}, launches {counts}",
+          flush=True)
+    if counts != {"mmgrid_splat": 11 * len(val), "mmgrid_slice": 11 * len(val)}:
+        raise SystemExit(f"show_result: mmgrid launches {counts}, expected {11 * len(val)} of each")
+    return counts
+
+
+def _engines(mk, dev) -> dict:
+    """(f) ``engine_neutrality`` at 375x500x21 (3 photo-like images): mmgrid,
+    lattice and grid on the card against the native permutohedral oracle on
+    the host; then ``crf_fast_neutrality`` at its defaults."""
+    from dsrg_tpu_torch.tools import neutrality_study
+
+    s0, l0 = mk.splat.launches, mk.slice.launches
+    t0 = time.perf_counter()
+    report = neutrality_study.engine_neutrality(3, IMG_H, IMG_W, device=dev)
+    wall = time.perf_counter() - t0
+    counts = {"mmgrid_splat": mk.splat.launches - s0, "mmgrid_slice": mk.slice.launches - l0}
+    print(f"engine neutrality ({report['geometry']}, {wall:.1f} s): oracle {report['oracle']}", flush=True)
+    for name in ("mmgrid", "lattice", "grid"):
+        r = report[name]
+        print(f"  {name}: agreement {r['argmax_agreement_vs_reference_algo']}, mean |dQ| "
+              f"{r['mean_abs_marginal_diff']}, ms/image {r['wall_ms_per_image_incl_compile_first']} (the first "
+              f"includes first-call costs)", flush=True)
+        if not r["argmax_agreement_vs_reference_algo"] >= ENGINE_AGREE:
+            raise SystemExit(f"engine {name} agrees with the oracle on {r['argmax_agreement_vs_reference_algo']} "
+                             f"< {ENGINE_AGREE}")
+    if counts != {"mmgrid_splat": 33, "mmgrid_slice": 33}:
+        raise SystemExit(f"engine neutrality: mmgrid launches {counts}, expected 33 of each")
+    print(f"crf_fast neutrality: {neutrality_study.crf_fast_neutrality(device=dev)}", flush=True)
+    return counts
+
+
+def _coco_phase(pk, mk, tmm, dev, rng, stage1_ms: float, out_dir: Path, phase_done) -> dict:
+    """Phase 13: COCO at 81 classes and the grid, lattice and native
+    engines; returns the kernels' launches of its main paths."""
+    import shutil
+
+    from dsrg_tpu_torch.tools.synth_check import make_dataset
+    from dsrg_tpu_torch.utils import imageio
+
+    _set_tf32(False)
+    base = out_dir / "coco"
+    shutil.rmtree(base, ignore_errors=True)
+    logs = base / "logs"
+    _coco_kernels(mk, tmm, dev, rng)
+    phase_done("13a (mmgrid at C = 81)")
+    launches = _coco_serving(mk, dev, rng, out_dir)
+    phase_done("13b (COCO served chunk)")
+    root = base / "data"
+    make_dataset(str(root), LEARN_TRAIN, LEARN_VAL, LEARN_SIZE, SEED, encode_image=imageio.write_png)
+    launches.update(_coco_step(pk, root, stage1_ms, out_dir))
+    phase_done("13c (COCO stage s in memory)")
+    counts, snapshot, root = _coco_learning(pk, mk, base, logs)
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    phase_done("13d (COCO learning check, train CLI)")
+    for k, v in _coco_seed_clis(mk, snapshot, root, base).items():
+        launches[k] += v
+    phase_done("13e (dump_cues, ap, show_result)")
+    for k, v in _engines(mk, dev).items():
+        launches[k] += v
+    for snapshots in (base / "synth" / "models-coco", base / "cli"):  # ~0.45 GB each, read by nothing later
+        shutil.rmtree(snapshots, ignore_errors=True)
+    print(f"COCO and engines: kernel launches of phase 13 {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1744,6 +2079,12 @@ def main() -> int:
     for name, log in logs.items():
         for line in _ptxas_summary(log):
             print(f"  {name}: {line}", flush=True)
+    from dsrg_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"native engines ({native._cxx()} {' '.join(native.flags(native._cxx()))}): {lib.name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     phase_done("2 (build)")
 
     rows, plan_ms = _kernel_phase(mk, tmm, dev, rng)
@@ -1841,6 +2182,9 @@ def main() -> int:
     for k, v in _resnet_phase(pk, mk, dev, images, gt_masks, label_sets, out_dir).items():
         launches[k] = launches.get(k, 0) + v
     phase_done("12 (ResNet-101)")
+    for k, v in _coco_phase(pk, mk, tmm, dev, rng, stage1_ms, out_dir, phase_done).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_done("13f (engines)")
 
     kernels = [
         {"name": "mmgrid_splat", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_splat.cu",

@@ -261,7 +261,8 @@ class Predictor:
         ``restrict_labels``: optional class indices (background included) to
         restrict the argmax to, as ``generate_train_gt.py`` makes the pseudo
         ground truth; a tie goes to the label listed first.
-        ``crf_engine``: the CRF's engine; "auto" takes the exact engine up to
+        ``crf_engine``: the CRF's engine (``ops/crf/api.CRF``: auto, exact,
+        mmgrid, grid, lattice or native); "auto" takes the exact engine up to
         8192 pixels and the matmul grid above (a VOC image takes the grid).
         """
         probs = self.predict_probs(image_rgb, sizes=sizes, scales=scales)

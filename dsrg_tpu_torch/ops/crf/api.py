@@ -6,6 +6,9 @@ parameterization ``(10, 80/sf, 80/sf, cf, cf, cf, 3, 3/sf, 3/sf)``, and an
 engine rule: the exact N^2 engine up to ``EXACT_MAX_PIXELS`` pixels, the
 matmul bilateral grid (``mean_field_mmgrid``, the splat / slice kernels)
 above.  The pseudo ground truth of a VOC image (500x375) takes the grid.
+A caller may name any of the five engines: ``exact``, ``mmgrid``, ``grid``
+(dense bilateral grid), ``lattice`` (compact lattice) or ``native`` (the
+exact mean field of ``native/crf_cpu.cpp`` on the host).
 
 The rest are the batched equivalents of the reference's Caffe ``CRFLayer``
 and ``DSRGLayer.refinement`` (``pylayers.py:54-92,310-331``): shrink the
@@ -26,6 +29,8 @@ from dsrg_tpu_torch._device import resolve_device
 from dsrg_tpu_torch.data.voc import BGR_MEAN
 from dsrg_tpu_torch.ops.crf.exact import mean_field_exact
 from dsrg_tpu_torch.ops.crf.features import bilateral_features, spatial_features
+from dsrg_tpu_torch.ops.crf.grid import mean_field_grid
+from dsrg_tpu_torch.ops.crf.lattice import mean_field_lattice
 from dsrg_tpu_torch.ops.crf.mmgrid import mean_field_mmgrid
 from dsrg_tpu_torch.ops.interp import zoom_bilinear
 from dsrg_tpu_torch.ops.softmax import MIN_PROB
@@ -62,15 +67,12 @@ def _crf_core(guides: torch.Tensor, unary: torch.Tensor, maxiter: int, scale_fac
 
 
 def resolve_engine(engine: str, h: int, w: int) -> str:
-    """The engine ``CRF(engine=...)`` runs for an (h, w) image: "exact" or
-    "mmgrid".  Raises for an unknown name and for an engine the port does
-    not have; it never substitutes one engine for another."""
+    """The engine ``CRF(engine=...)`` runs for an (h, w) image: the named
+    one, or for "auto" "exact" up to ``EXACT_MAX_PIXELS`` pixels and
+    "mmgrid" above.  Raises for an unknown name; it never substitutes one
+    engine for another."""
     if engine not in ENGINES:
         raise ValueError(f"unknown CRF engine {engine!r}; expected one of {'/'.join(ENGINES)}")
-    if engine in ("grid", "lattice", "native"):
-        raise NotImplementedError(
-            f"CRF engine {engine!r} is not ported yet (ROADMAP.md Queue 1 item 6); "
-            "use 'exact', 'mmgrid' or 'auto'")
     if engine != "auto":
         return engine
     resolved = "exact" if h * w <= EXACT_MAX_PIXELS else "mmgrid"
@@ -92,23 +94,33 @@ def CRF(image, unary, maxiter: int = 10, scale_factor: float = 1.0,
     marginals as an f32 tensor on the unary's device.
 
     ``engine``: "exact" (N^2 kernel matrices), "mmgrid" (matmul bilateral
-    grid on the splat / slice kernels) or "auto" (exact up to
-    ``EXACT_MAX_PIXELS`` pixels, mmgrid above).  ``device``: where numpy
-    inputs go (the card by default); a tensor ``unary`` stays on its device.
+    grid on the splat / slice kernels), "grid" (dense bilateral grid),
+    "lattice" (compact lattice), "native" (the host's C++ exact engine,
+    whatever the unary's device; its library builds at first use and a
+    failed build raises) or "auto" (exact up to ``EXACT_MAX_PIXELS``
+    pixels, mmgrid above).  ``device``: where numpy inputs go (the card by
+    default); a tensor ``unary`` stays on its device.
     """
     if not isinstance(unary, torch.Tensor):
         unary = torch.as_tensor(np.asarray(unary), device=resolve_device(device))
-    image = torch.as_tensor(image if isinstance(image, torch.Tensor) else np.asarray(image),
+    image = torch.as_tensor(image if isinstance(image, torch.Tensor) else np.array(image),
                             device=unary.device)
     h, w = unary.shape[:2]
     if tuple(image.shape) != (h, w, 3):
         raise ValueError(f"image {tuple(image.shape)} does not match unary {tuple(unary.shape)}")
     unary = unary.float()
-    if resolve_engine(engine, h, w) == "exact":
+    kwargs = dict(scale_factor=float(scale_factor), color_factor=float(color_factor))
+    resolved = resolve_engine(engine, h, w)
+    if resolved == "exact":
         return _crf_core(image[None].float(), unary[None], maxiter, float(scale_factor),
                          float(color_factor))[0]
-    return mean_field_mmgrid(unary, image, n_iters=maxiter, scale_factor=float(scale_factor),
-                             color_factor=float(color_factor))
+    if resolved == "native":
+        from dsrg_tpu_torch import native
+
+        q = native.crf_cpu(image.float().cpu().numpy(), unary.cpu().numpy(), maxiter=maxiter, **kwargs)
+        return torch.from_numpy(q).to(unary.device)
+    engines = {"mmgrid": mean_field_mmgrid, "grid": mean_field_grid, "lattice": mean_field_lattice}
+    return engines[resolved](unary, image, n_iters=maxiter, **kwargs)
 
 
 def crf_refine_probs(probs: torch.Tensor, images: torch.Tensor, scale_factor: float = 12.0,

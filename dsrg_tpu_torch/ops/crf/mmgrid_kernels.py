@@ -43,6 +43,16 @@ GC_MAX = 255  # lo_b*gc + lo_g must fit the low 16 bits of an index word
 PX_MAX = 0xFFFF  # the splat kernel keeps a position in a tile in 16 bits
 
 
+def splat_staged(px: int, c: int) -> bool:
+    """Whether the splat kernel stages a tile's (px, C) values in shared
+    memory beside its other arrays, or reads them from device memory (the
+    unstaged template): ``smem_bytes`` against ``SMEM_MAX`` of
+    ``csrc/mmgrid_splat.cu``.  A 1600-pixel tile stages at C = 21 and not
+    at COCO's C = 81."""
+    smem = px * 16 + 16 * 8 * c * 4 + (px + 1) * 4 + (px + (px & 1)) * 2 + px * (c | 1) * 2
+    return smem <= 227 * 1024 - 64
+
+
 def pack_index(lo_b: torch.Tensor, lo_g: torch.Tensor, lo_r: torch.Tensor, gc: int) -> torch.Tensor:
     """The kernels' index word of integer bins ``lo_*`` in [0, gc - 2]."""
     if not 2 <= gc <= GC_MAX:

@@ -58,7 +58,8 @@ def build_arg_parser(description: str) -> argparse.ArgumentParser:
                    choices=["auto", "exact", "mmgrid", "lattice", "grid", "native"],
                    help="CRF engine for --smooth (auto = exact below ~8k px, "
                         "matmul grid above; exact = parity at any size; "
-                        "lattice/grid/native: ROADMAP.md Queue 1 item 6). "
+                        "lattice = compact lattice, grid = dense bilateral "
+                        "grid, native = the host's C++ exact engine). "
                         "With --smooth, engines other than auto/mmgrid force "
                         "serial per-image inference (the batched CRF is the "
                         "masked matmul grid).")

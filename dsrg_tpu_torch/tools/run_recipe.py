@@ -126,8 +126,7 @@ def main(argv=None) -> None:
                    default="vgg16", help="backbone family for both stages")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "exact", "mmgrid", "lattice", "grid", "native"],
-                   help="CRF engine for the inference stages (lattice/grid/"
-                        "native: ROADMAP.md Queue 1 item 6)")
+                   help="CRF engine for the inference stages")
     p.add_argument("--pipeline", default="auto", choices=["auto", "host", "device"],
                    help="batched inference pipeline for both dump stages "
                         "(device = whole multi-scale pass on device; see "

@@ -21,10 +21,12 @@ Usage::
     python -m dsrg_tpu_torch.tools.synth_check --work-dir /tmp/synth --iters 300
 
 The tree's images are PIL JPEGs, as the JAX package writes them; where PIL is
-not installed, write a PNG-encoded tree with
-``data.synth.make_dataset(..., encode_image=utils.imageio.write_png)`` and
-run ``tools/run_recipe.py`` on it (``chip_smoke.py`` does).  ``--device``
-goes to every phase; ``--dataset coco`` waits for ROADMAP.md Queue 1 item 4.
+not installed, ``--image-format png`` writes them as lossless PNGs (through
+``utils/imageio.write_png``, under the same ``<id>.jpg`` names).
+``--device`` goes to every phase.  ``--dataset coco`` drives the 81-class
+dense-cue path: stage s from (image, label png) pairs, ``test_coco``'s
+streaming mIoU, and with ``--two-stage`` the pseudo ground truth and a
+stage-f retrain.
 """
 
 from __future__ import annotations
@@ -37,11 +39,10 @@ import os.path as osp
 import numpy as np
 
 from dsrg_tpu_torch.data.synth import PROFILES, make_dataset as _synth_make_dataset
-from dsrg_tpu_torch.tools._infer_common import not_ported
 
 
 def make_dataset(root: str, n_train: int, n_val: int, size: int, seed: int = 0,
-                 profile: str = "easy", progress_every: int = 0):
+                 profile: str = "easy", progress_every: int = 0, encode_image=None):
     """Back-compat wrapper: build the profile's spec at image/crop ``size``.
 
     For the ``easy`` profile ``size`` fixes the (square) image size exactly
@@ -55,7 +56,7 @@ def make_dataset(root: str, n_train: int, n_val: int, size: int, seed: int = 0,
         overrides.update(size_min=size, size_max=size)
     spec = dataclasses.replace(spec, **overrides)
     return _synth_make_dataset(root, n_train, n_val, spec, seed=seed,
-                               progress_every=progress_every)
+                               progress_every=progress_every, encode_image=encode_image)
 
 
 def _miou_fg(root: str, pred_dir: str, ids_file: str = "val_id.txt",
@@ -90,6 +91,79 @@ def _miou_fg(root: str, pred_dir: str, ids_file: str = "val_id.txt",
 
 
 _miou3 = _miou_fg  # round-2 name, kept for external callers
+
+
+def _run_coco_proof(args, root: str) -> float:
+    """From-scratch learning proof of the COCO dense-cue path: stage s reads
+    (image, label png) pairs and builds dense 81-channel cue volumes at
+    score resolution (``data/coco.py``); the evaluation is ``test_coco``'s
+    streaming mIoU.  ``--two-stage`` adds the pseudo-GT dump, a stage-f
+    retrain and the final evaluation."""
+    from dsrg_tpu_torch.tools import test_coco
+    from dsrg_tpu_torch.tools import train as train_tool
+    from dsrg_tpu_torch.tools._infer_common import build_arg_parser
+
+    ids = {split: open(osp.join(root, f"{split}_id.txt")).read().split() for split in ("train_aug", "val")}
+    pair_paths = {}
+    for split, split_ids in ids.items():
+        pair_paths[split] = osp.join(root, f"coco_{split}_pairs.txt")
+        with open(pair_paths[split], "w") as f:
+            for i in split_ids:
+                f.write(f"JPEGImages/{i}.jpg SegmentationClass/{i}.png\n")
+
+    snap = osp.join(args.work_dir, "models-coco")
+    train_tool.main([
+        "--stage", "s", "--dataset", "coco",
+        "--root", root + "/", "--pair-list", pair_paths["train_aug"],
+        "--snapshot-dir", snap, "--max-iter", str(args.iters),
+        "--batch-size", str(args.batch_size), "--crop-size", str(args.size),
+        "--snapshot-every", str(args.iters), "--display", "25",
+        "--dtype", args.dtype, "--model", args.model_name, "--device", args.device,
+    ] + (["--crf-true-grad"] if args.crf_true_grad else [])
+      + (["--crf-fast"] if args.crf_fast else []))
+    model_path = osp.join(snap, f"step_{args.iters}_params")
+
+    def coco_eval(model, out_dir):
+        ev = build_arg_parser("").parse_args([
+            "--images", pair_paths["val"], "--dir", root, "--model", model,
+            "--output", out_dir, "--num-classes", "81",
+            "--batch", str(args.batch), "--model-name", args.model_name, "--device", args.device,
+        ] + (["--smooth"] if args.smooth else []))
+        return test_coco.run_coco(ev, sizes=args.sizes or [args.size])
+
+    if args.two_stage:
+        # the pseudo-GT dump over train, then a stage-f retrain (run.sh on the COCO path)
+        dump_dir = osp.join(args.work_dir, "coco_pseudo_gt")
+        dump = build_arg_parser("").parse_args([
+            "--images", pair_paths["train_aug"], "--dir", root,
+            "--model", model_path, "--output", dump_dir,
+            "--num-classes", "81", "--batch", str(args.batch),
+            "--model-name", args.model_name, "--device", args.device,
+        ])
+        test_coco.run_coco(dump, sizes=args.sizes or [args.size])
+        f_pairs = osp.join(root, "coco_f_pairs.txt")
+        with open(f_pairs, "w") as f:
+            for i in ids["train_aug"]:
+                f.write(f"/JPEGImages/{i}.jpg {osp.abspath(osp.join(dump_dir, i + '.png'))}\n")
+        snap_f = osp.join(args.work_dir, "models-coco-f")
+        train_tool.main([
+            "--stage", "f", "--root", root, "--pair-list", f_pairs,
+            "--snapshot-dir", snap_f, "--num-classes", "81",
+            "--max-iter", str(args.iters2 or args.iters),
+            "--batch-size", str(args.batch_size), "--crop-size", str(args.size),
+            "--snapshot-every", str(args.iters2 or args.iters),
+            "--display", "25", "--weights", model_path,
+            "--dtype", args.dtype, "--model", args.model_name, "--device", args.device,
+        ])
+        model_path = osp.join(snap_f, f"step_{args.iters2 or args.iters}_params")
+
+    pred_dir = osp.join(args.work_dir, "coco_preds")
+    miou_quirk = coco_eval(model_path, pred_dir)
+    out = {"coco_val_miou_refquirk": float(miou_quirk), "iters": args.iters,
+           "dataset": "coco", "two_stage": bool(args.two_stage),
+           **_miou_fg(root, pred_dir, n_classes=81)}
+    print(json.dumps(out))
+    return out["miou3"]
 
 
 def main(argv=None) -> float:
@@ -129,8 +203,10 @@ def main(argv=None) -> float:
                         "predictions -> evaluate) via run_recipe instead of "
                         "the single-stage loop")
     p.add_argument("--dataset", choices=["voc", "coco"], default="voc",
-                   help="coco: the 81-class dense-cue path (ROADMAP.md Queue 1 "
-                        "item 4; exits until then)")
+                   help="coco: drive the 81-class dense-cue path "
+                        "(AnnotationLayerCOCO equivalent, data/coco.py): "
+                        "stage-s training from label pngs, test-coco "
+                        "streaming-mIoU eval, optional --two-stage retrain")
     p.add_argument("--iters2", type=int, default=None,
                    help="stage-2 iterations (default: --iters)")
     p.add_argument("--in-process", action="store_true",
@@ -140,14 +216,20 @@ def main(argv=None) -> float:
                         "want the default's RSS-watchdog isolation)")
     p.add_argument("--device", default="cuda",
                    help="forwarded to every phase: cuda (default) or cpu")
+    p.add_argument("--image-format", choices=["jpeg", "png"], default="jpeg",
+                   help="the tree's images: PIL JPEGs (as the JAX package "
+                        "writes them) or lossless PNGs, which need no PIL")
     args = p.parse_args(argv)
-    if args.dataset == "coco":
-        raise not_ported("--dataset coco", 4)
 
     root = osp.join(args.work_dir, "data")
+    from dsrg_tpu_torch.utils.imageio import write_png
+
     make_dataset(root, args.n_train, args.n_val, args.size, args.seed,
                  profile=args.profile,
-                 progress_every=500 if args.n_train + args.n_val > 500 else 0)
+                 progress_every=500 if args.n_train + args.n_val > 500 else 0,
+                 encode_image=write_png if args.image_format == "png" else None)
+    if args.dataset == "coco":
+        return _run_coco_proof(args, root)
 
     if args.two_stage:
         from dsrg_tpu_torch.tools import run_recipe

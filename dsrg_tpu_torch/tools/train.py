@@ -8,10 +8,12 @@ warm-starts parameters from a params file (``net.copy_from`` semantics);
 ``--snapshot`` resumes a full train state (``solver.restore`` semantics).
 ``--weights x.caffemodel`` imports Caffe weights for either family (for a
 ResNet-101 its BN statistics too: the warm start that ``calibrate_bn``
-writes).  The flags are the JAX CLI's plus ``--device`` (``cuda`` by
-default, ``cpu`` for the kernels' plain versions).  Flags whose code waits
-for a later slice of the port (COCO, several processes) exit naming their
-ROADMAP.md item.
+writes).  ``--dataset coco`` trains stage s on the 81-class dense cues of
+``data/coco.py`` (``--root`` / ``--pair-list``), its mean subtracted on the
+device from uint8 batches.  The flags are the JAX CLI's plus ``--device``
+(``cuda`` by default, ``cpu`` for the kernels' plain versions).  Flags whose
+code waits for a later slice of the port (several processes) exit naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import torch
 
 from dsrg_tpu_torch._device import disable_tf32, resolve_device
 from dsrg_tpu_torch.config import Stage1Config, Stage2Config
+from dsrg_tpu_torch.data.coco import COCO_MEAN, COCOCueDataset
 from dsrg_tpu_torch.data.cues import CueDB
 from dsrg_tpu_torch.data.loader import PrefetchLoader
-from dsrg_tpu_torch.data.voc import Stage1Dataset, Stage2Dataset
+from dsrg_tpu_torch.data.voc import BGR_MEAN, Stage1Dataset, Stage2Dataset
 from dsrg_tpu_torch.models import FAMILIES
 from dsrg_tpu_torch.models.import_caffe import caffe_blobs_to_torch, load_caffemodel, resnet_blobs_to_torch
 from dsrg_tpu_torch.tools._infer_common import not_ported
@@ -58,7 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--pair-list", help="stage f / coco: (image, label) pair list")
     p.add_argument("--dataset", choices=["voc", "coco"], default="voc",
                    help="stage s data source: VOC cue pickle or COCO dense cues "
-                        "(coco: ROADMAP.md Queue 1 item 4)")
+                        "(--root / --pair-list; --num-classes 21 becomes 81)")
     p.add_argument("--model", dest="model_name", choices=sorted(FAMILIES),
                    default="vgg16", help="backbone family")
     # solver overrides
@@ -168,8 +171,6 @@ def _override(cfg, args):
 
 
 def _check_ported(args) -> None:
-    if args.dataset == "coco":
-        raise not_ported("--dataset coco", 4)
     if args.num_processes > 1 or args.coordinator:
         raise not_ported("--num-processes > 1 / --coordinator", 8)
 
@@ -187,16 +188,27 @@ def main(argv=None) -> None:
     cache_dir = osp.join(args.snapshot_dir, "decoded_cache") if args.cache_decoded else None
 
     if args.stage == "s":
+        if args.dataset == "coco" and args.num_classes == 21:
+            args.num_classes = 81
         cfg = _override(Stage1Config(), args)
         model = FAMILIES[args.model_name](num_classes=cfg.num_classes, compute_dtype=dtype)
         state = init_stage1(model, cfg, device=dev)
-        cue_db = CueDB(args.cues, num_classes=cfg.num_classes, cue_size=cfg.cue_size)
-        dataset = Stage1Dataset(
-            args.image_dir, args.input_list, cue_db,
-            crop_size=cfg.crop_size, batch_size=cfg.batch_size, seed=cfg.seed,
-            ship_uint8=args.ship_uint8 or args.cache_decoded, cache_dir=cache_dir,
-        )
-        step = make_stage1_step(model, cfg, state.optimizer, state.generator)
+        if args.dataset == "coco":
+            dataset = COCOCueDataset(
+                args.root, args.pair_list, batch_size=cfg.batch_size,
+                new_size=(cfg.crop_size, cfg.crop_size), num_classes=cfg.num_classes, seed=cfg.seed,
+                ship_uint8=args.ship_uint8 or args.cache_decoded, cache_dir=cache_dir,
+            )
+            input_mean = COCO_MEAN
+        else:
+            cue_db = CueDB(args.cues, num_classes=cfg.num_classes, cue_size=cfg.cue_size)
+            dataset = Stage1Dataset(
+                args.image_dir, args.input_list, cue_db,
+                crop_size=cfg.crop_size, batch_size=cfg.batch_size, seed=cfg.seed,
+                ship_uint8=args.ship_uint8 or args.cache_decoded, cache_dir=cache_dir,
+            )
+            input_mean = BGR_MEAN
+        step = make_stage1_step(model, cfg, state.optimizer, state.generator, input_mean=input_mean)
     else:
         cfg = _override(Stage2Config(), args)
         model = FAMILIES[args.model_name](num_classes=cfg.num_classes, compute_dtype=dtype)

@@ -79,6 +79,23 @@ def image_size(path: str) -> Tuple[int, int]:
     return h, w
 
 
+def image_mode(path: str) -> str:
+    """The file's PIL mode (``Image.open(path).mode``: "RGB", "L", "P", ...)
+    from its header only.  A PNG that :func:`read_raw` does not read raises
+    ``NotImplementedError``, as the readers do."""
+    head = _head(path)
+    fmt = _sniff(head)
+    if fmt != "PNG":
+        with _pil_open(path, fmt) as im:
+            return im.mode
+    _w, _h, depth, ctype, interlace = _ihdr(head, path)
+    if ctype not in _COLOUR_TYPES:
+        raise ValueError(f"{path}: invalid PNG colour type {ctype}")
+    if depth != 8 or interlace:
+        raise NotImplementedError(f"{path}: only 8-bit, non-interlaced PNGs are read without PIL")
+    return _COLOUR_TYPES[ctype][1]
+
+
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)

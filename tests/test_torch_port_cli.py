@@ -5,7 +5,8 @@ CLIs and ``generate_train_gt`` write the JAX CLIs' masks (>= 0.99 of the
 pixels) from the same weights, ``evaluate`` gives JAX's numbers, and
 ``run_recipe`` / ``synth_check`` run end to end (in-process, and supervised
 with a relaunch).  Every CLI takes ``--help``; flags of later slices exit
-naming their ROADMAP.md item; ``--device cuda`` without a card raises."""
+naming their ROADMAP.md item, and those of item 4 (``--dataset coco``) run;
+``--device cuda`` without a card raises."""
 
 import dataclasses
 import importlib
@@ -37,7 +38,7 @@ from dsrg_tpu_torch.train import checkpoint as ckpt
 from dsrg_tpu_torch.utils import watchdog
 
 TOOLS = ("train", "test", "test_ms", "test_ms_f", "evaluate", "generate_train_gt", "run_recipe", "synth_check",
-         "calibrate_bn")
+         "calibrate_bn", "test_coco", "test_coco_f", "dump_cues", "ap", "show_result", "neutrality_study")
 
 
 @pytest.fixture(autouse=True)
@@ -109,9 +110,28 @@ def test_every_cli_takes_help(name, capsys):
     (generate_train_gt, ["--images", "x", "--dir", "y", "--model", "z", "--cues", "c", "--mesh"], 8),
     (synth_check, ["--work-dir", "w", "--dataset", "coco"], 4),
 ])
-def test_later_slice_flags_exit_naming_their_item(tool, argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
-        tool.main(argv + ["--device", "cpu"])
+def test_later_slice_flags_exit_naming_their_item(tool, argv, item, tree, tmp_path):
+    """Item 8's flags exit naming it.  Item 4 (``--dataset coco``) is
+    ported: its cases train and evaluate the 81-class path at crop 41."""
+    if "coco" not in argv:
+        with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
+            tool.main(argv + ["--device", "cpu"])
+        return
+    if tool is synth_check:
+        miou3 = synth_check.main(["--work-dir", str(tmp_path / "w"), "--dataset", "coco", "--iters", "1",
+                                  "--n-train", "4", "--n-val", "2", "--size", "41", "--batch-size", "2",
+                                  "--batch", "2", "--image-format", "png", "--device", "cpu"])
+        assert np.isfinite(miou3) and 0.0 <= miou3 <= 1.0
+        assert len(os.listdir(tmp_path / "w" / "coco_preds")) == 2
+        return
+    pairs = tmp_path / "pairs.txt"
+    pairs.write_text("".join(f"/JPEGImages/{i}.jpg /SegmentationClass/{i}.png\n"
+                             for i in open(osp.join(tree, "train_aug_id.txt")).read().split()))
+    train.main(argv + ["--root", tree, "--pair-list", str(pairs), "--snapshot-dir", str(tmp_path / "m"),
+                       "--max-iter", "1", "--batch-size", "2", "--crop-size", "41", "--snapshot-every", "1",
+                       "--display", "1", "--ship-uint8", "--device", "cpu", "--stall-limit-min", "0"])
+    params = ckpt.load_params(str(tmp_path / "m" / "step_1_params"))
+    assert params["fc8-SEC_1.weight"].shape[0] == 81  # --num-classes 21 becomes 81
 
 
 def test_device_cuda_without_a_card_raises(tree, tmp_path, monkeypatch):
@@ -249,12 +269,19 @@ def test_evaluate_matches_jax(tmp_path):
     assert (tmp_path / "t.txt").read_text() == (tmp_path / "j.txt").read_text()
 
 
-def test_test_ms_refuses_an_engine_of_a_later_slice(infer_setup, tmp_path):
-    base, _ = infer_setup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        test_ms.main(["--images", str(base / "ids.txt"), "--dir", str(base), "--model", str(base / "params"),
-                      "--num-classes", "6", "--sizes", "41", "--smooth", "--engine", "lattice",
-                      "--output", str(tmp_path / "o"), "--device", "cpu"])
+def test_test_ms_refuses_an_engine_of_a_later_slice(infer_setup, tmp_path, monkeypatch):
+    """The engines of Queue 1 item 6 are ported: ``--engine lattice`` with
+    ``--smooth`` runs per image through ``CRF()`` and writes JAX's masks."""
+    base, params = infer_setup
+    monkeypatch.setattr(jcommon, "load_params", lambda path, template=None: params)
+    common = ["--images", str(base / "ids.txt"), "--dir", str(base), "--num-classes", "6", "--sizes", "41",
+              "--smooth", "--engine", "lattice"]
+    jtest_ms.main(common + ["--model", "unused", "--output", str(tmp_path / "jax")])
+    test_ms.main(common + ["--model", str(base / "params"), "--output", str(tmp_path / "o"), "--device", "cpu"])
+    assert _agreement(tmp_path / "jax", tmp_path / "o", ["img_a", "img_b"]) >= 0.99
+    with pytest.raises(SystemExit, match="--pipeline device smooths with the mmgrid engine"):
+        test_ms.main(common + ["--model", str(base / "params"), "--output", str(tmp_path / "d"), "--device", "cpu",
+                               "--pipeline", "device"])
 
 
 # -- the recipe and the learning check --------------------------------------------------

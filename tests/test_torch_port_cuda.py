@@ -51,7 +51,8 @@ def _inputs(seed, t, px, gc, c, dev, clustered):
 # path at sigma_xy 80) whose values do not fit the splat's shared memory
 @pytest.mark.parametrize("t,px,gc,c,clustered", [
     (1040, 1600, 21, 21, True), (1040, 1600, 21, 1, True), (3, 1600, 21, 21, False),
-    (2, 77, 7, 3, False), (5, 300, 9, 40, True), (1, 256, 5, 81, False), (2, 6400, 21, 21, True)])
+    (2, 77, 7, 3, False), (5, 300, 9, 40, True), (1, 256, 5, 81, False), (2, 6400, 21, 21, True),
+    (192, 1600, 21, 81, True), (24, 1600, 21, 81, False)])
 def test_kernels_match_plain(cuda, t, px, gc, c, clustered):
     """Tolerance 1e-5 x max|plain| (fp32 sums in another order); two launches
     on the same inputs give the same bits, the splat's second one with the
@@ -67,6 +68,75 @@ def test_kernels_match_plain(cuda, t, px, gc, c, clustered):
         assert torch.equal(got, again)
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
     assert (mk.splat.launches, mk.slice.launches) == (s0 + 2, l0 + 2)
+
+
+def test_coco_tiles_take_the_unstaged_splat(cuda):
+    """COCO's 81 classes at the served 1600-pixel tiles: the splat reads its
+    values from device memory (the unstaged template), C = 21 stages them;
+    both give the plain version's slab."""
+    assert mk.splat_staged(1600, 21) and not mk.splat_staged(1600, 81)
+    sparse, values, _ = _inputs(81, 12, 1600, 21, 81, cuda, True)
+    got = mk.splat(*sparse, values, 21)
+    ref = mk.splat_plain(*sparse, values, 21)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("engine", ["grid", "lattice"])
+def test_grid_and_lattice_card_match_cpu(cuda, engine):
+    """The grid and lattice engines on the card against the CPU: their
+    splats are index_add_ sums, which the card adds with atomics in no fixed
+    order, so marginals agree within 1e-4 and argmaxes on >= 0.999 of the
+    pixels, not bit for bit."""
+    from dsrg_tpu_torch.ops.crf.grid import mean_field_grid
+    from dsrg_tpu_torch.ops.crf.lattice import mean_field_lattice
+
+    fn = {"grid": mean_field_grid, "lattice": mean_field_lattice}[engine]
+    rng = np.random.default_rng(9)
+    h, w, m = 90, 120, 21
+    img = np.zeros((h, w, 3), np.float32)
+    img[:, : w // 2] = [200, 60, 50]
+    img[:, w // 2:] = [30, 180, 190]
+    img = np.clip(img + rng.normal(size=img.shape) * 8, 0, 255).astype(np.float32)
+    prefer = np.zeros((h, w, m))
+    prefer[:, : w // 2, 1] = prefer[:, w // 2:, 2] = 1.0
+    unary = np.log(0.65 * rng.dirichlet(np.ones(m), size=(h, w)) + 0.35 * prefer).astype(np.float32)
+    got = fn(torch.from_numpy(unary).to(cuda), torch.from_numpy(img).to(cuda), n_iters=10).cpu()
+    ref = fn(torch.from_numpy(unary), torch.from_numpy(img), n_iters=10)
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert (got.argmax(-1) == ref.argmax(-1)).float().mean().item() >= 0.999
+
+
+def test_stage1_coco_step_card_matches_cpu(cuda):
+    """One tiny 81-class stage-1 step on a uint8 batch with COCO_MEAN from the
+    same weights on the card and the CPU: metrics within 1e-3 (fp32 sums in
+    other orders), 5 + 5 pool kernel launches on the card."""
+    from dsrg_tpu_torch.config import Stage1Config
+    from dsrg_tpu_torch.data.coco import COCO_MEAN
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.ops import pool_kernels as pk
+    from dsrg_tpu_torch.train.stage1 import init_stage1, make_stage1_step
+
+    rng = np.random.default_rng(12)
+    cfg = Stage1Config(num_classes=81, batch_size=2, crop_size=41, cue_size=6, crf_iters=3, mirror=False)
+    labels = np.zeros((2, 81), np.float32)
+    labels[:, 0] = labels[0, 17] = labels[1, 60] = 1.0
+    small = rng.choice([0, 17, 60, 255], size=(2, 6, 6))
+    cues = np.zeros((2, 6, 6, 81), np.uint8)
+    for b, y, x in zip(*np.nonzero(small != 255)):
+        cues[b, y, x, small[b, y, x]] = 1
+    batch = {"images": rng.integers(0, 256, (2, 41, 41, 3)).astype(np.uint8), "labels": labels,
+             "cues": cues * labels[:, None, None, :].astype(np.uint8)}
+    out = {}
+    for dev in (cuda, "cpu"):
+        model = DeepLabLargeFOV(num_classes=81, head_dilations=(2, 4), dropout_rate=0.0)
+        state = init_stage1(model, cfg, device=dev)
+        counts = (pk.pool_bwd_h.launches, pk.pool_bwd_w.launches)
+        m = make_stage1_step(model, cfg, state.optimizer, state.generator, input_mean=COCO_MEAN)(batch)
+        out[str(dev)] = {k: v.item() for k, v in m.items()}
+        launched = (pk.pool_bwd_h.launches - counts[0], pk.pool_bwd_w.launches - counts[1])
+        assert launched == ((5, 5) if dev is cuda else (0, 0))
+    for key in ("loss", "loss_seed", "loss_constrain", "grad_norm"):
+        np.testing.assert_allclose(out[str(cuda)][key], out["cpu"][key], rtol=1e-3, err_msg=key)
 
 
 def test_plan_on_the_card_is_sparse(cuda):

@@ -83,9 +83,8 @@ def test_crf_engine_resolution(caplog):
     assert tapi.resolve_engine("mmgrid", 4, 4) == "mmgrid"
     with pytest.raises(ValueError, match="unknown CRF engine"):
         tapi.resolve_engine("lattise", 4, 4)
-    for engine in ("grid", "lattice", "native"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tapi.resolve_engine(engine, 4, 4)
+    for engine in ("grid", "lattice", "native"):  # a named engine runs whatever the size
+        assert tapi.resolve_engine(engine, 4, 4) == tapi.resolve_engine(engine, 500, 375) == engine
     with pytest.raises(ValueError):  # the JAX package refuses the same name
         japi.CRF(np.zeros((4, 4, 3)), np.zeros((4, 4, 2)), engine="lattise")
     # "auto" says once per geometry which engine it took
@@ -102,8 +101,19 @@ def test_crf_engine_resolution(caplog):
         assert torch.equal(got, tapi.CRF(img, torch.from_numpy(unary), engine=engine))
 
 
-@pytest.mark.parametrize("engine,h,w", [("exact", 40, 50), ("mmgrid", 60, 90)])
-def test_crf_matches_jax(engine, h, w):
+@pytest.fixture
+def _jax_native(tmp_path, monkeypatch):
+    """JAX's native engine built in a temporary copy of native/."""
+    from tests.test_torch_port_engines import jax_native_in
+
+    jax_native_in(tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("engine,h,w", [("exact", 40, 50), ("mmgrid", 60, 90), ("grid", 40, 50),
+                                        ("lattice", 60, 90), ("native", 30, 40)])
+def test_crf_matches_jax(engine, h, w, request):
+    if engine == "native":
+        request.getfixturevalue("_jax_native")
     img, unary = _crf_case(1, h, w)
     ref = np.asarray(japi.CRF(img, unary, scale_factor=1.0, engine=engine))
     s0, l0 = mk.splat.launches, mk.slice.launches
@@ -113,6 +123,22 @@ def test_crf_matches_jax(engine, h, w):
     # a float image gives the uint8 image's marginals: the engines round it
     again = tapi.CRF(img.astype(np.float32) + 0.3, torch.from_numpy(unary), engine=engine)
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("engine", ["grid", "lattice", "native"])
+def test_crf_engine_resolution_names_each_engine(engine):
+    """``CRF(engine=...)`` runs the named engine at any size, returns f32
+    marginals on the unary's device, and the native engine (the host's C++
+    exact mean field) gives the exact engine's marginals."""
+    img, unary = _crf_case(3, 24, 30)
+    got = tapi.CRF(img, torch.from_numpy(unary), maxiter=5, engine=engine)
+    assert got.shape == (24, 30, M) and got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
+    exact = tapi.CRF(img, torch.from_numpy(unary), maxiter=5, engine="exact")
+    if engine == "native":
+        np.testing.assert_allclose(got.numpy(), exact.numpy(), atol=1e-4)
+    else:
+        assert (got.argmax(-1) == exact.argmax(-1)).float().mean() > 0.95
 
 
 def test_crf_numpy_inputs_need_a_device():

@@ -110,6 +110,10 @@ def test_no_port_module_imports_jax():
     jax nor the JAX package (the card's machine has no JAX)."""
     names = [m.name for m in pkgutil.walk_packages(dsrg_tpu_torch.__path__, "dsrg_tpu_torch.")]
     assert "dsrg_tpu_torch.data.synth" in names and "dsrg_tpu_torch.utils.confusion" in names
+    assert {"dsrg_tpu_torch.native", "dsrg_tpu_torch.data.coco", "dsrg_tpu_torch.ops.crf.lattice",
+            "dsrg_tpu_torch.tools.test_coco", "dsrg_tpu_torch.tools.test_coco_f", "dsrg_tpu_torch.tools.dump_cues",
+            "dsrg_tpu_torch.tools.ap", "dsrg_tpu_torch.tools.show_result",
+            "dsrg_tpu_torch.tools.neutrality_study"} <= set(names)
     code = ("import sys, importlib; before = set(sys.modules)\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
