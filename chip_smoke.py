@@ -70,10 +70,11 @@ Phases, each fatal on failure:
      and 5 timed steps with finite metrics and 5 + 5 pool launches per
      step, one step under the profiler; a tiny step card against CPU;
   9. the precisions: the stage-1 step (batch 20) and the stage-2 step
-     (batch 10) at full width in fp32 with TF32 off, in fp32 with TF32 on
-     (cuDNN and matmul) and in bfloat16 (``DeepLabLargeFOV(compute_dtype=
-     torch.bfloat16)``, ``compute_dtype="bfloat16"``, stage 1 with
-     ``crf_fast=True``): ms/step, images/s, peak memory, the pool kernels'
+     (batch 10) at full width in fp32 with TF32 on (cuDNN and matmul) and
+     in bfloat16 (``DeepLabLargeFOV(compute_dtype=torch.bfloat16)``,
+     ``compute_dtype="bfloat16"``, stage 1 with ``crf_fast=True``; fp32
+     with TF32 off is phases 6 and 8, whose profiles also list the
+     convolutions by shape): ms/step, images/s, peak memory, the pool kernels'
      launches by element type and a profile of one step each; a served
      chunk of 8 in sizes mode with a bf16 model; a tiny bf16 step card
      against CPU; TF32 off again after it;
@@ -146,7 +147,25 @@ Phases, each fatal on failure:
      ``utils/imageio``; (f) ``neutrality_study.engine_neutrality`` at
      375x500x21 (mmgrid, lattice and grid on the card against the native
      permutohedral oracle on the host, fatal below 0.998 agreement) and
-     ``crf_fast_neutrality``.
+     ``crf_fast_neutrality``;
+  14. serving export: (a) phase 5's net (its weights from ``SEED``) exported
+     with ``serving.export_pipeline`` (sizes (241, 321, 401), CRF on, canvas
+     384x512, batch 8: phase 5's chunk program) and loaded with
+     ``ServingPipeline``: export and load seconds, bytes; (b) the artifact on
+     phase 5's 8 images beside ``predict_masks_device`` (a warm-up, then 3
+     timed chunks each): ms/chunk, images/s, peak memory, masks fatal below
+     0.999 agreement per image; (c) one artifact chunk under the profiler:
+     the mmgrid kernels' launches by kernel name and by the custom ops'
+     counters, fatal unless 11 + 11 both ways; (d) ``export_deploy`` at
+     (8, 321, 321, 3) against the eager forward with ``floored_softmax``,
+     fatal beyond 1e-4 relative; (e) ``python -m dsrg_tpu_torch.tools.export``
+     in both modes on phase 11's ``step_300_params`` (two child processes
+     at once, beside (f)'s CPU reference), then a fresh process that loads
+     and runs both artifacts without importing jax; (f) the
+     ``DenseCRF`` object API at 120x160x21 (Gaussian and bilateral terms, 10
+     iterations) on the card against the CPU (fatal beyond 1e-4), and one
+     CRF-learning run (``minimize_lbfgs`` on ``tests/test_crf_learning.py``'s
+     diagonal problem) on the card, whose objective must fall.
 Each phase prints its wall time, and the script its total.  The last lines are a JSON line of kernels, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without that line when
 there is no CUDA device or no ``dsrg_tpu_torch`` beside this file.
@@ -653,10 +672,11 @@ def _group(kernel: str) -> str:
     return "other"
 
 
-def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> None:
+def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> dict:
     """``fn()`` once under torch.profiler: device time by kernel group;
     ``conv_shapes``: also the convolutions' device time by input shapes
-    (which layers the convolution time goes to)."""
+    (which layers the convolution time goes to).  Returns the kernel
+    launches by group, as the profiler counted them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=conv_shapes) as prof:
@@ -665,6 +685,7 @@ def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     groups: dict = {}
+    counts: dict = {}
     kernels = []
     for evt in prof.key_averages():
         # the ResNet's batch norm is elementwise work inside a named range; the
@@ -674,6 +695,7 @@ def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> None:
         ms = evt.self_device_time_total / 1e3
         group = _group(evt.key)
         groups[group] = groups.get(group, 0.0) + ms
+        counts[group] = counts.get(group, 0) + evt.count
         kernels.append((ms, evt.count, evt.key))
     # the kernels launched inside the batch-norm ranges (forward and backward)
     # move from "other" to a group of their own
@@ -685,7 +707,7 @@ def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> None:
     busy = sum(groups.values())
     if busy == 0.0:
         print(f"profile ({title}): the profiler recorded no device time", flush=True)
-        return
+        return counts
     print(f"profile ({title}, under the profiler): wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {max(0.0, 1.0 - busy / wall_ms):.3f}", flush=True)
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -701,6 +723,7 @@ def _profile(title: str, fn, out_file: Path, conv_shapes: bool = False) -> None:
             print(f"    {ms:9.2f} ms  x{count:<3d} {key} {shapes}", flush=True)
     out_file.parent.mkdir(parents=True, exist_ok=True)
     out_file.write_text(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return counts
 
 
 def _train_batch(rng, cfg, dev) -> dict:
@@ -761,7 +784,7 @@ def _train_phase(pk, rng, out_dir: Path) -> tuple:
     if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
         raise SystemExit(f"pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
 
-    _profile("train, one step", lambda: step(batch), out_dir / "chip_smoke_train_profile.txt")
+    _profile("train, one step", lambda: step(batch), out_dir / "chip_smoke_train_profile.txt", conv_shapes=True)
 
     # one more step with the region growing bracketed by synchronisations
     grow, grow_ms = stage1.dsrg_grow, []
@@ -1013,7 +1036,7 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> tuple:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
         raise SystemExit(f"stage-2 pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
-    _profile("stage 2, one step", lambda: step(batch), out_dir / "chip_smoke_stage2_profile.txt")
+    _profile("stage 2, one step", lambda: step(batch), out_dir / "chip_smoke_stage2_profile.txt", conv_shapes=True)
     del state, step, model, batch, metrics
     torch.cuda.empty_cache()
 
@@ -1091,9 +1114,10 @@ def _timed_steps(pk, what: str, precision: str, step, batch, n_images: int, out_
 
 
 def _precision_phase(pk, mk, dev, images, gt_masks, params, fp32_masks, out_dir: Path) -> dict:
-    """Both train steps at full width in fp32 (TF32 off), fp32 with TF32 and
-    bf16; a served chunk with a bf16 model; a tiny bf16 step card vs CPU.
-    Returns the pool and mmgrid kernels' launches of these runs."""
+    """Both train steps at full width in fp32 with TF32 and in bf16 (their
+    fp32 runs, TF32 off, are phases 6 and 8); a served chunk with a bf16
+    model; a tiny bf16 step card vs CPU.  Returns the pool and mmgrid
+    kernels' launches of these runs."""
     from dsrg_tpu_torch.config import Stage1Config, Stage2Config
     from dsrg_tpu_torch.inference import Predictor
     from dsrg_tpu_torch.models import DeepLabLargeFOV
@@ -1103,7 +1127,7 @@ def _precision_phase(pk, mk, dev, images, gt_masks, params, fp32_masks, out_dir:
     try:
         for what, cfg_cls, batch_size, mod in (("stage 1", Stage1Config, TRAIN_BATCH, stage1),
                                                ("stage 2", Stage2Config, STAGE2_BATCH, stage2)):
-            for precision, tf32 in PRECISIONS:
+            for precision, tf32 in PRECISIONS[1:]:  # fp32: phases 6 and 8 run the same steps
                 _set_tf32(tf32)
                 bf16 = precision == "bf16"
                 extra = {"crf_fast": True} if bf16 and cfg_cls is Stage1Config else {}
@@ -2041,6 +2065,273 @@ def _coco_phase(pk, mk, tmm, dev, rng, stage1_ms: float, out_dir: Path, phase_do
     return launches
 
 
+# serving export (phase 14): phase 5's net and images as torch.export artifacts
+EXPORT_CANVAS = (384, 512)  # phase 5's chunk canvas: 500x375 on 32-pixel buckets
+EXPORT_CHUNKS = 3  # timed chunks of the artifact and of the eager pipeline
+EXPORT_AGREE = 0.999  # masks per image, artifact against eager (tests/test_serving.py's bound)
+DEPLOY_SHAPE = (8, 321, 321, 3)
+DEPLOY_RTOL = 1e-4  # elementwise, on probabilities floored at ~1e-4
+RECIPE_SNAPSHOT = Path("recipe") / "work" / "model-s" / f"step_{RECIPE_ITERS}_params"  # phase 11's, under out_dir
+CRF_API_HW, CRF_API_M = (120, 160), 21  # DenseCRF: N = 19200, two 1.47 GB kernel matrices
+CRF_API_TOL = 1e-4  # card against CPU, on the marginals
+# a child process loads both CLI artifacts and runs each once
+_ARTIFACT_CHILD = """
+import json, sys
+import numpy as np
+from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
+from dsrg_tpu_torch.serving import ServingModel, ServingPipeline
+pipe, deploy, shape = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+rng = np.random.default_rng(0)
+images = [rng.integers(0, 256, (375, 500, 3)).astype(np.uint8) for _ in range(3)]
+masks = ServingPipeline(pipe)(images)
+probs = ServingModel(deploy)(rng.normal(size=shape).astype(np.float32) * 40)
+print(json.dumps({"masks": [list(m.shape) for m in masks], "mask_max": max(int(m.max()) for m in masks),
+                  "probs": list(probs.shape), "sums": float(np.abs(probs.sum(-1) - 1).max()),
+                  "launches": [mk.splat.launches, mk.slice.launches], "jax": "jax" in sys.modules}))
+"""
+
+
+def _timed_chunks(fn, n: int) -> tuple:
+    """``fn()`` once to warm up, then ``n`` timed calls (each ends in the
+    result's download, a synchronisation): (ms of each call, the last
+    result, the peak GiB of the timed calls)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms, out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _ms(each: list) -> str:
+    return f"{sum(each) / len(each):.1f} ms ({', '.join(f'{t:.1f}' for t in each)})"
+
+
+def _crf_api_case(rng):
+    """A four-region photo-like image and probabilities that favour one
+    class per region, as a network's do (i.i.d. probabilities make near
+    ties that fp32 rounding decides: ``tests/test_torch_port_train.py``)."""
+    h, w = CRF_API_HW
+    img = np.zeros((h, w, 3), np.int32)
+    prefer = np.zeros((h, w, CRF_API_M))
+    for (y, x), colour, cls in zip(((0, 0), (0, 1), (1, 0), (1, 1)),
+                                   ([200, 60, 50], [30, 180, 190], [90, 90, 220], [240, 230, 60]), (1, 3, 7, 12)):
+        img[y * h // 2: (y + 1) * h // 2, x * w // 2: (x + 1) * w // 2] = colour
+        prefer[y * h // 2: (y + 1) * h // 2, x * w // 2: (x + 1) * w // 2, cls] = 1.0
+    img = np.clip(img + rng.integers(-12, 12, img.shape), 0, 255).astype(np.uint8)
+    probs = 0.65 * rng.dirichlet(np.ones(CRF_API_M), size=(h, w)) + 0.35 * prefer
+    return img, probs.reshape(h * w, CRF_API_M).astype(np.float32)
+
+
+def _crf_api(dev, after_card):
+    """Phase 14f: the DenseCRF object API at 120x160x21, card against CPU,
+    and one CRF-learning run (``tests/test_crf_learning.py``'s diagonal
+    problem) by L-BFGS on the card.  ``after_card()`` runs once the card's
+    marginals are timed, before the CPU's; its result is returned."""
+    from dsrg_tpu_torch.ops.crf import exact
+    from dsrg_tpu_torch.ops.crf.api import DenseCRF, DiagonalCompatibility
+    from dsrg_tpu_torch.ops.crf.features import bilateral_features
+    from dsrg_tpu_torch.ops.crf.objectives import log_likelihood, minimize_lbfgs
+
+    h, w = CRF_API_HW
+    img, probs = _crf_api_case(np.random.default_rng(SEED))
+    out = {}
+    for where in ("cuda", "cpu"):
+        crf = DenseCRF(w, h, CRF_API_M, device=where)
+        crf.set_unary_energy(-np.log(probs).ravel())
+        crf.add_pairwise_energy(10, 80, 80, 13, 13, 13, 3, 3, 3, img.ravel())  # the reference CRF() at sf 1
+        if where == "cuda":
+            ms, q, peak = _timed_chunks(lambda: crf.inference(10), EXPORT_CHUNKS)
+            print(f"DenseCRF {h}x{w}x{CRF_API_M} (N = {h * w}), Gaussian + bilateral, inference(10) on the card: "
+                  f"{_ms(ms)}, peak {peak:.2f} GiB", flush=True)
+            result = after_card()
+        else:
+            t0 = time.perf_counter()
+            q = crf.inference(10)
+            print(f"  on the CPU (beside the export CLI's children): {1e3 * (time.perf_counter() - t0):.1f} ms",
+                  flush=True)
+        out[where] = q
+        del crf
+    torch.cuda.empty_cache()
+    err = float(np.abs(out["cuda"] - out["cpu"]).max())
+    agree = float((out["cuda"].reshape(-1, CRF_API_M).argmax(-1) == out["cpu"].reshape(-1, CRF_API_M).argmax(-1)).mean())
+    print(f"  card vs CPU: max |dQ| {err:.3e} (tolerance {CRF_API_TOL}), argmax agreement {agree:.5f}", flush=True)
+    if not err <= CRF_API_TOL:
+        raise SystemExit("DenseCRF: the card's marginals disagree with the CPU's")
+
+    # tests/test_crf_learning.py's problem: 10x10, 4 labels, diagonal compatibility and feature scales
+    n_side, m = 10, 4
+    rng = np.random.default_rng(0)
+    image = np.zeros((n_side, n_side, 3), np.float32)
+    image[:, : n_side // 2] = (60, 120, 200)
+    image[:, n_side // 2:] = (200, 80, 40)
+    image = np.round((image + rng.normal(size=image.shape).astype(np.float32) * 6).clip(0, 255))
+    gt = np.broadcast_to(np.where(np.arange(n_side)[None, :] < n_side // 2, 1, 3), (n_side, n_side)).ravel()
+    unary = rng.normal(size=(n_side * n_side, m)).astype(np.float32) * 0.5
+    unary[np.arange(n_side * n_side), gt] += 1.0
+    unary[: n_side * n_side // 4] = rng.normal(size=(n_side * n_side // 4, m)) * 0.5
+    image_t, unary_t = torch.from_numpy(image).to(dev), torch.from_numpy(unary).to(dev)
+    gt_t = torch.from_numpy(gt.astype(np.int64)).to(dev)
+
+    def loss(p):
+        s_xy, s_rgb = torch.exp(p[m]), torch.exp(p[m + 1])
+        feats = bilateral_features(image_t, s_xy, s_xy, s_rgb, s_rgb, s_rgb)
+        q = exact.mean_field_general(unary_t, [feats], [DiagonalCompatibility(p[:m])], n_iters=3)
+        return -log_likelihood(q, gt_t)
+
+    p0 = torch.tensor([0.0] * m + [float(np.log(5.0)), float(np.log(30.0))], device=dev)
+    t0 = time.perf_counter()
+    p_star = minimize_lbfgs(loss, p0, max_iters=40)
+    with torch.no_grad():
+        l0, l1 = loss(p0).item(), loss(p_star).item()
+    print(f"CRF learning (L-BFGS, 40 iterations at most, on the card): objective {l0:.6f} -> {l1:.6f} in "
+          f"{time.perf_counter() - t0:.2f} s, parameters on {p_star.device}", flush=True)
+    if not (l1 < l0 - 1e-3 and p_star.is_cuda):
+        raise SystemExit("CRF learning: the objective did not fall on the card")
+    return result
+
+
+def _export_phase(mk, dev, params, images, out_dir: Path, phase_done) -> dict:
+    """Phase 14: serving export.  Phase 5's net and images as a pipeline
+    artifact (export, load, masks and ms/chunk against the eager pipeline,
+    the CRF kernels' launches counted by the profiler and by the custom ops'
+    counters) and a deploy artifact; the CRF object API on the card, its CPU
+    reference computed beside the export CLI's two children; a fresh loader
+    in a child process.  Returns the kernels' launches of the artifact's
+    chunks."""
+    import tempfile
+
+    from dsrg_tpu_torch import serving
+    from dsrg_tpu_torch.inference import Predictor
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+    from dsrg_tpu_torch.ops.softmax import floored_softmax
+
+    _set_tf32(False)
+    predictor = Predictor(DeepLabLargeFOV(num_classes=21), params, num_classes=21, device="cuda")
+    launches = {"mmgrid_splat": 0, "mmgrid_slice": 0}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        path = tmp / "pipeline.pt2"
+        t0 = time.perf_counter()
+        serving.export_pipeline(predictor.model, str(path), canvas_hw=EXPORT_CANVAS, batch=N_IMAGES, sizes=SIZES,
+                                smooth=True)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = serving.ServingPipeline(str(path))
+        print(f"pipeline artifact (sizes {SIZES}, CRF on, canvas {EXPORT_CANVAS}, batch {N_IMAGES}): exported in "
+              f"{export_s:.2f} s, {path.stat().st_size:,} bytes, loaded in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        if (served.batch, served.ph, served.pw) != (N_IMAGES, *EXPORT_CANVAS) or served.device.type != "cuda":
+            raise SystemExit(f"pipeline artifact: batch {served.batch}, canvas {served.ph}x{served.pw} on "
+                             f"{served.device}")
+
+        # (b) the eager pipeline (the yardstick) and the artifact in turns
+        art_ms, eager_ms = [], []
+        counted = dict.fromkeys(launches, 0)
+        for who in ("eager", "artifact", "artifact", "eager"):
+            if who == "eager":
+                ms, want, eager_peak = _timed_chunks(lambda: predictor.predict_masks_device(images, sizes=SIZES),
+                                                     EXPORT_CHUNKS)
+                eager_ms += ms
+                continue
+            mk.splat.launches = mk.slice.launches = 0
+            ms, got, art_peak = _timed_chunks(lambda: served(images), EXPORT_CHUNKS)
+            art_ms += ms
+            counted["mmgrid_splat"] += mk.splat.launches
+            counted["mmgrid_slice"] += mk.slice.launches
+        agree = [float((g == w).mean()) for g, w in zip(got, want)]
+        print(f"pipeline artifact: {_ms(art_ms)}/chunk of {N_IMAGES}, {N_IMAGES * 1e3 * len(art_ms) / sum(art_ms):.2f} "
+              f"images/s, peak {art_peak:.2f} GiB; eager predict_masks_device {_ms(eager_ms)}/chunk, peak "
+              f"{eager_peak:.2f} GiB (in turns eager, artifact, artifact, eager: {EXPORT_CHUNKS} timed chunks after a "
+              f"warm-up each); launches {counted}; masks "
+              f"agree per image {min(agree):.5f}..{max(agree):.5f}", flush=True)
+        for g, im in zip(got, images):
+            if g.shape != im.shape[:2] or g.dtype != np.uint8 or int(g.max()) >= 21:
+                raise SystemExit(f"pipeline artifact: bad mask {g.shape} {g.dtype} max {g.max()}")
+        if min(agree) < EXPORT_AGREE:
+            raise SystemExit(f"pipeline artifact: masks agree with the eager ones on {min(agree)} < {EXPORT_AGREE}")
+        if counted != dict.fromkeys(launches, 2 * 11 * (1 + EXPORT_CHUNKS)):
+            raise SystemExit(f"pipeline artifact: kernel launches {counted}, expected 11 of each per chunk")
+
+        # (c) one chunk's launches by kernel name under the profiler, and by the counters
+        mk.splat.launches = mk.slice.launches = 0
+        by_name = _profile("pipeline artifact, one chunk", lambda: served(images),
+                           out_dir / "chip_smoke_artifact_profile.txt")
+        by_name = {k: by_name.get(k, 0) for k in launches}
+        by_counter = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
+        print(f"pipeline artifact, one chunk: launches by the profiler's kernel names {by_name}, by the custom "
+              f"ops' counters {by_counter}", flush=True)
+        if by_name != dict.fromkeys(launches, 11) or by_counter != by_name:
+            raise SystemExit("pipeline artifact: the launches of a chunk are not 11 + 11 both ways")
+        for k in launches:
+            launches[k] = counted[k] + by_counter[k]
+        phase_done("14a-c (pipeline artifact)")
+
+        # (d) the deploy artifact against the eager forward with floored_softmax
+        dpath = tmp / "deploy.pt2"
+        t0 = time.perf_counter()
+        serving.export_deploy(predictor.model, str(dpath), input_shape=DEPLOY_SHAPE)
+        export_s = time.perf_counter() - t0
+        deploy = serving.ServingModel(str(dpath))
+        x = (torch.randn(DEPLOY_SHAPE, generator=torch.Generator().manual_seed(SEED)) * 40).numpy()
+        deploy_ms, probs, _ = _timed_chunks(lambda: deploy(x), EXPORT_CHUNKS)
+        with torch.no_grad():
+            eager_ms, ref, _ = _timed_chunks(lambda: floored_softmax(predictor.model(torch.from_numpy(x).to(dev)))
+                                             .cpu().numpy(), EXPORT_CHUNKS)
+        rel = float((np.abs(probs - ref) / np.abs(ref)).max())
+        print(f"deploy artifact {DEPLOY_SHAPE}: exported in {export_s:.2f} s, {dpath.stat().st_size:,} bytes; "
+              f"{_ms(deploy_ms)}/batch (eager {_ms(eager_ms)}); max relative error {rel:.3e} (tolerance "
+              f"{DEPLOY_RTOL})", flush=True)
+        if not rel <= DEPLOY_RTOL:
+            raise SystemExit("deploy artifact: disagrees with the eager forward")
+        del predictor, served, deploy
+        torch.cuda.empty_cache()
+        phase_done("14d (deploy artifact)")
+
+        # (e) the export CLI on phase 11's snapshot in two children at once (each spends most of its
+        # time on the host), started once (f) has timed the card: (f)'s CPU reference runs beside
+        # them; then a fresh process that loads both artifacts
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cli, children = {}, {}
+
+        def start_children():
+            for mode, extra in (("pipeline", ["--canvas", *EXPORT_CANVAS]),
+                                ("deploy", ["--input-size", DEPLOY_SHAPE[1]])):
+                cli[mode] = tmp / f"cli_{mode}.pt2"
+                argv = ["--model", out_dir / RECIPE_SNAPSHOT, "--output", cli[mode], "--mode", mode, "--batch",
+                        N_IMAGES, *extra]
+                children[mode] = subprocess.Popen(
+                    [sys.executable, "-m", "dsrg_tpu_torch.tools.export", *map(str, argv)], cwd=root, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return time.perf_counter()
+
+        t0 = _crf_api(dev, start_children)
+        for mode, proc in children.items():
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise SystemExit(f"export CLI --mode {mode} exited {proc.returncode}:\n{log[-3000:]}")
+            print(f"export CLI --mode {mode}: done after {time.perf_counter() - t0:.1f} s (both children started "
+                  f"together), {cli[mode].stat().st_size:,} bytes; {log.strip().splitlines()[-1]}", flush=True)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, str(cli["pipeline"]), str(cli["deploy"]),
+                                json.dumps(list(DEPLOY_SHAPE))], cwd=root, env=env, capture_output=True, text=True,
+                               timeout=600)
+        if child.returncode != 0:
+            raise SystemExit(f"artifact loader child exited {child.returncode}:\n{child.stderr[-3000:]}")
+        res = json.loads(child.stdout.strip().splitlines()[-1])
+        print(f"a fresh process loaded and ran both CLI artifacts in {time.perf_counter() - t0:.1f} s: {res}",
+              flush=True)
+        if (res["jax"] or res["masks"] != [[375, 500]] * 3 or res["mask_max"] >= 21
+                or res["probs"] != [DEPLOY_SHAPE[0], 41, 41, 21] or res["sums"] > 1e-5 or res["launches"] != [11, 11]):
+            raise SystemExit("artifact loader child: wrong result, or jax was imported")
+    print(f"serving export: kernel launches of phase 14 {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2185,6 +2476,9 @@ def main() -> int:
     for k, v in _coco_phase(pk, mk, tmm, dev, rng, stage1_ms, out_dir, phase_done).items():
         launches[k] = launches.get(k, 0) + v
     phase_done("13f (engines)")
+    for k, v in _export_phase(mk, dev, params, images, out_dir, phase_done).items():
+        launches[k] = launches.get(k, 0) + v
+    phase_done("14e-f (export CLI, CRF object API)")
 
     kernels = [
         {"name": "mmgrid_splat", "route": "cuda", "source": "dsrg_tpu_torch/csrc/mmgrid_splat.cu",

@@ -7,3 +7,4 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from dsrg_tpu_torch._device import resolve_device  # noqa: F401
+from dsrg_tpu_torch.ops.softmax import floored_softmax  # noqa: F401

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -32,3 +34,15 @@ def disable_tf32() -> None:
     package computes them: PyTorch lets cuDNN convolve in TF32 by default."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """:func:`disable_tf32` inside the block only; the caller's settings
+    come back after it."""
+    before = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    disable_tf32()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before

@@ -11,6 +11,12 @@ K is small and the loop is plain fp32 matmuls, batched over a leading image
 dimension.  The JAX package computes them at ``Precision.HIGHEST``: on the
 card TF32 must be off (``torch.backends.cuda.matmul.allow_tf32 = False``,
 PyTorch's default).  ``fast=True`` multiplies in bfloat16 instead.
+
+:func:`mean_field_general` is the object API's engine (``DenseCRF``):
+arbitrary label compatibilities and the reference's four kernel
+normalisations (:func:`kernel_norm_weights`); it runs its products in full
+fp32 whatever TF32 allows, and autograd differentiates it (CRF learning,
+``objectives.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from dsrg_tpu_torch._device import full_fp32
 
 
 def gaussian_kernel_matrix(feats: torch.Tensor) -> torch.Tensor:
@@ -32,6 +40,39 @@ def symmetric_norm(k: torch.Tensor) -> torch.Tensor:
     """NORMALIZE_SYMMETRIC weights 1/sqrt(K @ 1 + 1e-20), (..., N)."""
     ones = torch.ones(k.shape[-1], 1, dtype=k.dtype, device=k.device)
     return torch.rsqrt((k @ ones)[..., 0] + 1e-20)
+
+
+def kernel_norm_weights(k: torch.Tensor, ntype: str):
+    """(pre, post) per-pixel weights of the forward filter, after the
+    reference ``DenseKernel``'s normalisations (``pairwise.cpp:40-80``),
+    with deg = K @ 1:
+
+      - ``"no"``: K @ q, no weights;
+      - ``"before"``: K @ (q / (deg + 1e-20));
+      - ``"after"``: (K @ q) / (deg + 1e-20) (NIPS'11);
+      - ``"symmetric"``: rsqrt(deg + 1e-20) on both sides (ICML'13, the
+        default and the only mode DSRG runs).
+    None for a side without weights."""
+    with full_fp32():
+        deg = (k @ torch.ones(k.shape[-1], 1, dtype=k.dtype, device=k.device))[..., 0]
+    if ntype == "symmetric":
+        nrm = torch.rsqrt(deg + 1e-20)
+        return nrm, nrm
+    if ntype == "before":
+        return 1.0 / (deg + 1e-20), None
+    if ntype == "after":
+        return None, 1.0 / (deg + 1e-20)
+    if ntype == "no":
+        return None, None
+    raise ValueError(f"unknown normalization type: {ntype!r}")
+
+
+def normalized_filter(k: torch.Tensor, q: torch.Tensor, pre, post) -> torch.Tensor:
+    """``post * (K @ (pre * q))`` for (N, M) q, either side optional."""
+    x = q if pre is None else pre[..., None] * q
+    with full_fp32():
+        out = k @ x
+    return out if post is None else post[..., None] * out
 
 
 def _softmax_cols(x: torch.Tensor) -> torch.Tensor:
@@ -94,4 +135,30 @@ def mean_field_exact(unary: torch.Tensor, feats_list: Sequence[torch.Tensor],
     q = _softmax_cols(unary)
     for _ in range(n_iters):
         q = _softmax_cols(unary + message(q))
+    return q
+
+
+def mean_field_general(unary: torch.Tensor, feats_list: Sequence[torch.Tensor], compat_fns: Sequence,
+                       n_iters: int = 10, norm_types: Sequence[str] | None = None) -> torch.Tensor:
+    """Mean field with arbitrary label compatibilities.
+
+    ``unary``: (N, M) negated unary costs; ``feats_list``: one (N, d_k)
+    array per kernel; ``compat_fns[k]`` maps the filtered (N, M) messages to
+    the compatibility's output (Potts ``-w * m``, Diagonal ``m * v``, Matrix
+    ``m @ W.T``; signs per ``labelcompatibility.cpp:45-85``), which the
+    update subtracts (``densecrf.cpp:122-129``); ``norm_types[k]`` is the
+    kernel's normalisation (:func:`kernel_norm_weights`, symmetric by
+    default).  Returns (N, M) marginals.
+    """
+    with full_fp32():
+        kernels = [gaussian_kernel_matrix(f.float()) for f in feats_list]
+    if norm_types is None:
+        norm_types = ["symmetric"] * len(kernels)
+    norms = [kernel_norm_weights(k, nt) for k, nt in zip(kernels, norm_types)]
+    q = _softmax_cols(unary)
+    for _ in range(n_iters):
+        tmp = unary
+        for k, (pre, post), compat in zip(kernels, norms, compat_fns):
+            tmp = tmp - compat(normalized_filter(k, q, pre, post))
+        q = _softmax_cols(tmp)
     return q

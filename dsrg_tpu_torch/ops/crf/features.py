@@ -23,9 +23,11 @@ def spatial_features(h: int, w: int, sx: float, sy: float, dtype=torch.float32,
 
 def bilateral_features(image: torch.Tensor, sx: float, sy: float, sr: float, sg: float,
                        sb: float) -> torch.Tensor:
-    """(..., h*w, 5) features from (..., h, w, 3) images in [0, 255]."""
+    """(..., h*w, 5) features from (..., h, w, 3) images in [0, 255]; the
+    scales may be numbers or 0-d tensors (CRF learning differentiates them)."""
     h, w, _ = image.shape[-3:]
     sp = spatial_features(h, w, sx, sy, dtype=image.dtype, device=image.device)
-    scale = torch.tensor([sr, sg, sb], dtype=image.dtype, device=image.device)
+    # stacked, not copied into a new tensor: learned scales keep their gradient
+    scale = torch.stack([torch.as_tensor(v, dtype=image.dtype, device=image.device) for v in (sr, sg, sb)])
     col = (image / scale).reshape(*image.shape[:-3], h * w, 3)
     return torch.cat([sp.expand(*col.shape[:-1], 2), col], dim=-1)

@@ -22,24 +22,14 @@ when the caller allows TF32.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import numpy as np
 import torch
 
+from dsrg_tpu_torch._device import full_fp32
+
 _F32 = torch.float32
-
-
-@contextlib.contextmanager
-def _fp32_matmul():
-    """Full fp32 matrix products inside, whatever the caller allows (TF32)."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def axis_blur_matrix(length: int, sigma: float, truncate: float, device) -> torch.Tensor:
@@ -147,7 +137,7 @@ class GridPlan:
         grid = torch.zeros((self.n_cells, c), dtype=flat.dtype, device=flat.device)
         grid.index_add_(0, self.sorted_idx, flat[self.perm])
         grid = grid.reshape(*self.dims, c)
-        with _fp32_matmul():
+        with full_fp32():
             for axis, b in enumerate(self.blurs):
                 grid = torch.tensordot(b, grid.movedim(axis, 0), dims=1).movedim(0, axis)
         gathered = grid.reshape(self.n_cells, c)[self.corner_idx.reshape(-1)].reshape(32, h * w, c)
@@ -175,7 +165,7 @@ def mean_field_grid(unary: torch.Tensor, image: torch.Tensor, n_iters: int = 10,
     plan = GridPlan(img, 80.0 / scale_factor, color_factor)
     spatial = gaussian_axes(h, w, s_g, unary.device)
 
-    with _fp32_matmul():
+    with full_fp32():
         ones = torch.ones((h, w, 1), dtype=_F32, device=unary.device)
         norm_b = torch.rsqrt(plan.filter(ones) + 1e-20)
         norm_s = torch.rsqrt(separable_gaussian_filter(ones, s_g, axes=spatial) + 1e-20)

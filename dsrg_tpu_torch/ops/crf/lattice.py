@@ -23,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsrg_tpu_torch.ops.crf.grid import (_fp32_matmul, _grid_geometry, corners, gaussian_axes, grid_coords,
+from dsrg_tpu_torch._device import full_fp32
+from dsrg_tpu_torch.ops.crf.grid import (_grid_geometry, corners, gaussian_axes, grid_coords,
                                          grid_strides, nearest_cells, separable_gaussian_filter)
 
 _F32 = torch.float32
@@ -75,7 +76,7 @@ class CompactLatticePlan:
         table = torch.zeros((self.n, c), dtype=values.dtype, device=values.device)
         table.index_add_(0, self.pixel_slot, values.reshape(self.n, c))
         n_off = len(_OFFSETS)
-        with _fp32_matmul():
+        with full_fp32():
             for axis in range(5):
                 sl = self.nb_slots[axis * n_off: (axis + 1) * n_off]
                 ok = self.nb_valid[axis * n_off: (axis + 1) * n_off]
@@ -103,7 +104,7 @@ def mean_field_lattice(unary: torch.Tensor, image: torch.Tensor, n_iters: int = 
     s_g = 3.0 / scale_factor
     spatial = gaussian_axes(h, w, s_g, unary.device)
 
-    with _fp32_matmul():
+    with full_fp32():
         mask = (torch.ones((h, w, 1), dtype=_F32, device=unary.device) if valid_mask is None
                 else valid_mask.to(_F32)[..., None])
         norm_b = torch.rsqrt(plan.filter(mask) + 1e-20)

@@ -23,10 +23,16 @@ function is unchanged: every weight is the bf16 number the dense operand
 holds, and :func:`dense_operands` turns the sparse form back into the dense
 operands for the plain versions.
 
-A wrapper runs the plain PyTorch version only for tensors on the CPU; a CUDA
-tensor launches the kernel, and anything else raises.  ``splat.launches`` /
-``slice.launches`` count kernel launches, ``dense_operands.calls`` the
-densifications (none on the card's main path).
+Both are ``torch.library`` custom ops, ``dsrg_tpu_torch::mmgrid_splat`` and
+``dsrg_tpu_torch::mmgrid_slice``, so that ``torch.export`` traces them into
+a served program (``serving.py``): the CUDA kernel of an op launches the
+CUDA kernel, its CPU kernel runs the plain PyTorch version, and its fake
+implementation gives the output's shape and dtype.  The wrappers
+:func:`splat` / :func:`slice` check dtypes and shapes and call the ops; a
+tensor on another device than the CPU or a card raises.
+``splat.launches`` / ``slice.launches`` count kernel launches (the ops'
+CUDA kernels count them, in an exported program too),
+``dense_operands.calls`` the densifications (none on the card's main path).
 """
 
 from __future__ import annotations
@@ -129,12 +135,65 @@ def _check_sparse(idx: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor, gc: 
     _check("idx", idx, _I32, (t, px), idx.device)
     _check("wbg4", wbg4, _BF16, (t, 4, px), idx.device)
     _check("wr2", wr2, _BF16, (t, 2, px), idx.device)
-    # the bins' range costs a device sync to read, so only the CPU path checks
-    # it; on the card the kernels leave a pixel with a bin out of range out
-    if idx.device.type == "cpu" and idx.numel():
+
+
+def _check_bins(idx: torch.Tensor, gc: int) -> None:
+    """The bins' range, read from the data: only the ops' CPU kernels check
+    it (on the card reading it would cost a synchronisation, and a traced
+    program cannot read data), and the card's kernels leave a pixel with a
+    bin out of range out."""
+    if idx.numel():
         lo = torch.stack([(idx & 0xFFFF) // gc, (idx & 0xFFFF) % gc, idx >> 16])
         if int(lo.min()) < 0 or int(lo.max()) > gc - 2:
             raise ValueError(f"idx: a bin lies outside [0, {gc - 2}]")
+
+
+@torch.library.custom_op("dsrg_tpu_torch::mmgrid_splat", mutates_args=(), device_types="cpu")
+def _splat_op(idx: torch.Tensor, perm: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor,
+              values: torch.Tensor, gc: int) -> torch.Tensor:
+    """CPU kernel: the plain version (``perm`` is only the card's)."""
+    _check_bins(idx, gc)
+    return splat_plain(idx, wbg4, wr2, values, gc)
+
+
+@_splat_op.register_kernel("cuda")
+def _(idx, perm, wbg4, wr2, values, gc):
+    t, px = idx.shape
+    c = values.shape[1]
+    out = torch.empty((t, gc * gc, gc * c), dtype=_F32, device=idx.device)
+    launch("mmgrid_splat", out, ((idx.contiguous(), perm.contiguous(), wbg4.contiguous(),
+                                  wr2.contiguous(), values.contiguous()), (t, px, gc, c)))
+    splat.launches += 1
+    return out
+
+
+@_splat_op.register_fake
+def _(idx, perm, wbg4, wr2, values, gc):
+    return idx.new_empty((idx.shape[0], gc * gc, gc * values.shape[1]), dtype=_F32)
+
+
+@torch.library.custom_op("dsrg_tpu_torch::mmgrid_slice", mutates_args=(), device_types="cpu")
+def _slice_op(idx: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor, slab: torch.Tensor,
+              gc: int) -> torch.Tensor:
+    """CPU kernel: the plain version."""
+    _check_bins(idx, gc)
+    return slice_plain(idx, wbg4, wr2, slab, gc)
+
+
+@_slice_op.register_kernel("cuda")
+def _(idx, wbg4, wr2, slab, gc):
+    t, px = idx.shape
+    c = slab.shape[2] // gc
+    out = torch.empty((t, c, px), dtype=_F32, device=idx.device)
+    launch("mmgrid_slice", out, ((idx.contiguous(), wbg4.contiguous(), wr2.contiguous(),
+                                  slab.contiguous()), (t, px, gc, c)))
+    slice.launches += 1
+    return out
+
+
+@_slice_op.register_fake
+def _(idx, wbg4, wr2, slab, gc):
+    return idx.new_empty((idx.shape[0], slab.shape[2] // gc, idx.shape[1]), dtype=_F32)
 
 
 def splat(idx: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor, values: torch.Tensor,
@@ -158,13 +217,8 @@ def splat(idx: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor, values: torc
         raise ValueError(f"values: expected (T, C, px), got {tuple(values.shape)}")
     c = values.shape[1]
     _check("values", values, _F32, (t, c, px), idx.device)
-    if not kernel_device(idx, "mmgrid kernels"):
-        return splat_plain(idx, wbg4, wr2, values, gc)
-    out = torch.empty((t, gc * gc, gc * c), dtype=_F32, device=idx.device)
-    launch("mmgrid_splat", out, ((idx.contiguous(), perm.contiguous(), wbg4.contiguous(),
-                                  wr2.contiguous(), values.contiguous()), (t, px, gc, c)))
-    splat.launches += 1
-    return out
+    kernel_device(idx, "mmgrid kernels")  # raises off the CPU and the card
+    return _splat_op(idx, perm, wbg4, wr2, values, gc)
 
 
 def slice(idx: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor, slab: torch.Tensor,  # noqa: A001
@@ -173,21 +227,15 @@ def slice(idx: torch.Tensor, wbg4: torch.Tensor, wr2: torch.Tensor, slab: torch.
     A bin outside [0, gc - 2] raises on the CPU; on the card such a pixel's
     output is zero (reading the range there would cost a synchronisation)."""
     _check_sparse(idx, wbg4, wr2, gc)
-    t, px = idx.shape
+    t = idx.shape[0]
     if slab.dim() != 3:
         raise ValueError(f"slab: expected (T, gc^2, gc*C), got {tuple(slab.shape)}")
     q = slab.shape[2]
     if q % gc:
         raise ValueError(f"slab width {q} is not a multiple of gc={gc}")
-    c = q // gc
     _check("slab", slab, _BF16, (t, gc * gc, q), idx.device)
-    if not kernel_device(idx, "mmgrid kernels"):
-        return slice_plain(idx, wbg4, wr2, slab, gc)
-    out = torch.empty((t, c, px), dtype=_F32, device=idx.device)
-    launch("mmgrid_slice", out, ((idx.contiguous(), wbg4.contiguous(), wr2.contiguous(),
-                                  slab.contiguous()), (t, px, gc, c)))
-    slice.launches += 1
-    return out
+    kernel_device(idx, "mmgrid kernels")  # raises off the CPU and the card
+    return _slice_op(idx, wbg4, wr2, slab, gc)
 
 
 splat.launches = 0

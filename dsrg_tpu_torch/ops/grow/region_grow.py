@@ -21,6 +21,7 @@ The whole batch grows at once.  Every ``unroll`` dilations one convergence
 check reads a flag back to the host; ``dsrg_grow.checks`` counts them.
 Classes absent from every image of the batch are skipped: their seeds stay
 as they are, as the per-image rule leaves them.  No gradient flows.
+:func:`grow_seeds_single` is the grow of one image: the batch of one.
 """
 
 from __future__ import annotations
@@ -90,6 +91,14 @@ def dsrg_grow(image_labels: torch.Tensor, cues: torch.Tensor, probs_refined: tor
         new_c = torch.maximum(is_seed_c, reach * (1.0 - barrier))
         seed[:, c] = torch.where(present[:, c, None, None], new_c, is_seed_c)
     return seed.permute(0, 2, 3, 1).contiguous()
+
+
+def grow_seeds_single(image_labels: torch.Tensor, cues: torch.Tensor, probs_refined: torch.Tensor,
+                      th1: float = 0.99, th2: float = 0.85) -> torch.Tensor:
+    """One image's grow: (M,) labels (bit 0, background, always set),
+    (h, w, M) cues and refined probabilities -> (h, w, M) grown seeds, the
+    same as :func:`dsrg_grow` on a batch of that one image."""
+    return dsrg_grow(image_labels[None], cues[None], probs_refined[None], th1, th2)[0]
 
 
 dsrg_grow.checks = 0

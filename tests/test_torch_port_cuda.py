@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import _crf_f64
 from dsrg_tpu_torch.ops.crf import mmgrid as tmm
 from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
 
@@ -620,3 +621,75 @@ def test_train_cli_with_cuda_hidden_raises(cuda, tmp_path):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert not (tmp_path / "m").exists()
+
+
+def test_pipeline_artifact_on_the_card_matches_eager(cuda, tmp_path):
+    """An exported pipeline (canvas 64x64, batch 2, sizes (41,), CRF on) on
+    the card: masks against the eager ``predict_masks_device`` on the same
+    canvas, and the custom ops' counters count the artifact's 11 + 11
+    kernel launches per chunk."""
+    from dsrg_tpu_torch import serving
+
+    on_card, _ = _small_predictors(cuda)
+    rng = np.random.default_rng(6)
+    images = []
+    for h, w in ((40, 52), (45, 48), (50, 44)):
+        img = np.zeros((h, w, 3), np.uint8)
+        img[:, : w // 2] = [200, 60, 50]
+        img[:, w // 2:] = [30, 180, 190]
+        images.append(np.clip(img + rng.integers(-8, 8, img.shape), 0, 255).astype(np.uint8))
+    path = serving.export_pipeline(on_card.model, str(tmp_path / "pipe.pt2"), canvas_hw=(64, 64), batch=2,
+                                   sizes=(41,), num_classes=6)
+    served = serving.ServingPipeline(path)
+    assert served.device.type == "cuda"
+    launches = (mk.splat.launches, mk.slice.launches)
+    got = served(images)  # two chunks
+    assert (mk.splat.launches - launches[0], mk.slice.launches - launches[1]) == (22, 22)
+    want = on_card.predict_masks_device(images, sizes=[41], canvas_bucket=64)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and (g == w).mean() >= 0.999
+
+
+def test_deploy_artifact_on_the_card_matches_eager(cuda, tmp_path):
+    from dsrg_tpu_torch import serving
+    from dsrg_tpu_torch.ops.softmax import floored_softmax
+
+    on_card, _ = _small_predictors(cuda)
+    x = np.random.default_rng(7).normal(size=(2, 41, 41, 3)).astype(np.float32) * 40
+    served = serving.ServingModel(serving.export_deploy(on_card.model, str(tmp_path / "d.pt2"),
+                                                        input_shape=(2, 41, 41, 3)))
+    with torch.no_grad():
+        ref = floored_softmax(on_card.model(torch.from_numpy(x).to(cuda))).cpu().numpy()
+    np.testing.assert_allclose(served(x), ref, rtol=1e-4, atol=1e-6)
+
+
+def test_dense_crf_card_matches_cpu(cuda):
+    """The object API with Gaussian and bilateral terms (all four
+    normalisations), card against CPU, on a two-colour image with
+    probabilities that favour one class per region.  On i.i.d. inputs the
+    next test holds the card to a float64 reference instead."""
+    from dsrg_tpu_torch.ops.crf.api import DenseCRF, PottsCompatibility
+
+    image, probs = _crf_f64.coherent_case(8)
+    for ntype in _crf_f64.NTYPES:
+        out = [_crf_f64.set_up(DenseCRF(_crf_f64.W, _crf_f64.H, _crf_f64.M, device=dev), PottsCompatibility,
+                               image, probs, ntype).inference(10) for dev in (cuda, "cpu")]
+        assert np.abs(out[0] - out[1]).max() <= 1e-4
+
+
+@pytest.mark.parametrize("seed", _crf_f64.IID_SEEDS)
+def test_dense_crf_card_on_iid_inputs_near_float64(cuda, seed):
+    """A pixel-noise image with i.i.d. probabilities: fp32 rounding decides
+    near-ties, and the JAX package and the port on the CPU already sit up
+    to ~1e-3 from a float64 reference
+    (``test_torch_port_crf_f64.py``).
+    The card's marginals stay within the same ``IID_TOL`` of it in every
+    mode."""
+    from dsrg_tpu_torch.ops.crf.api import DenseCRF, PottsCompatibility
+
+    image, probs = _crf_f64.iid_case(seed)
+    for ntype in _crf_f64.NTYPES:
+        ref = _crf_f64.mean_field_f64(image, probs, ntype)
+        q = _crf_f64.set_up(DenseCRF(_crf_f64.W, _crf_f64.H, _crf_f64.M, device=cuda), PottsCompatibility,
+                            image, probs, ntype).inference(10)
+        assert np.abs(q.reshape(ref.shape) - ref).max() <= _crf_f64.IID_TOL, ntype

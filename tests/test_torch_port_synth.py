@@ -113,7 +113,8 @@ def test_no_port_module_imports_jax():
     assert {"dsrg_tpu_torch.native", "dsrg_tpu_torch.data.coco", "dsrg_tpu_torch.ops.crf.lattice",
             "dsrg_tpu_torch.tools.test_coco", "dsrg_tpu_torch.tools.test_coco_f", "dsrg_tpu_torch.tools.dump_cues",
             "dsrg_tpu_torch.tools.ap", "dsrg_tpu_torch.tools.show_result",
-            "dsrg_tpu_torch.tools.neutrality_study"} <= set(names)
+            "dsrg_tpu_torch.tools.neutrality_study", "dsrg_tpu_torch.serving", "dsrg_tpu_torch.tools.export",
+            "dsrg_tpu_torch.ops.crf.objectives", "dsrg_tpu_torch.utils.pydensecrf_compat"} <= set(names)
     code = ("import sys, importlib; before = set(sys.modules)\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "print(sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
