@@ -55,6 +55,14 @@ Phases, each fatal on failure:
      with finite losses and 5 + 5 pool kernel launches per step, one step
      under the profiler, one with the region growing timed; then one tiny
      step from the same weights on the card and on the CPU, which must agree;
+     6b: a one-rank NCCL group (``parallel.distributed.init_group``; NCCL
+     refuses two ranks on one card) and the same step from the same state
+     and batch through ``parallel.data_parallel_step``: loss within 1e-5 and
+     parameters within 2e-5 relative of the plain step (whether the bits are
+     equal printed, and whether two plain steps' are), the batch padded to 24
+     (4 masked rows; mirror and dropout off) against the unpadded step, 3
+     timed steps with 5 + 5 pool launches each, the coalesced all-reduce
+     timed alone (its share of the step) and one step under the profiler;
   7. the pseudo ground truth (``tools/generate_train_gt.py``): a predictor of
      the serving phase's net and weights, ``Predictor.predict_mask(sizes=[321],
      restrict_labels=...)`` on 8 synthetic 500x375 images with label sets
@@ -69,6 +77,10 @@ Phases, each fatal on failure:
      on crops of phase 7's masks with a band of ignore labels; 2 warm-up
      and 5 timed steps with finite metrics and 5 + 5 pool launches per
      step, one step under the profiler; a tiny step card against CPU;
+     8b: the stage-2 step over the NCCL group as in 6b (padded 10 -> 12);
+     8c: ``Predictor(mesh=make_mesh())`` on phase 5's chunk in sizes mode
+     with the CRF: phase 5's masks, 11 + 11 mmgrid launches; the group is
+     destroyed after it;
   9. the precisions: the stage-1 step (batch 20) and the stage-2 step
      (batch 10) at full width in fp32 with TF32 on (cuDNN and matmul) and
      in bfloat16 (``DeepLabLargeFOV(compute_dtype=torch.bfloat16)``,
@@ -81,7 +93,7 @@ Phases, each fatal on failure:
   10. the learning check (``dsrg_tpu/tools/synth_check.py`` in memory): the
      ``easy`` synthetic set at 321 (64 train, 16 val images, seed 0, cues in
      the reference's pickle through ``save_cue_db`` / ``CueDB``), stage 1
-     from ``init_stage1`` for 300 iterations at batch 8, val masks from
+     from ``init_stage1`` for 200 iterations at batch 8, val masks from
      ``predict_masks_device(sizes=[321], smooth=False)``, scored by the
      reference's quirk mIoU and the honest ``miou3``; once in fp32 (TF32
      off), once in bf16 with ``crf_fast=True``; fatal if either ``miou3`` is
@@ -92,7 +104,7 @@ Phases, each fatal on failure:
      machine has no PIL; the images are the arrays, without JPEG
      artefacts), then ``python -m dsrg_tpu_torch.tools.run_recipe`` in its
      default supervised mode, every phase a ``python -m
-     dsrg_tpu_torch.tools.*`` child on the card: stage s and stage f for 300
+     dsrg_tpu_torch.tools.*`` child on the card: stage s and stage f for 200
      iterations at batch 8 (fp32, TF32 off), the ``test_ms`` and
      ``test_ms_f`` dumps at 321 with the CRF, and ``evaluate``; each phase's
      wall time, the dumps' images/s, the children's kernel launches (pool
@@ -138,7 +150,7 @@ Phases, each fatal on failure:
      ``Stage1Config`` at 81 classes with ``input_mean=COCO_MEAN`` (batch 20
      @ 321^2): 2 warm-up and 5 timed steps, 5 + 5 pool launches per step,
      peak memory, a profile; (d) ``python -m dsrg_tpu_torch.tools.
-     synth_check --dataset coco --image-format png`` (300 iterations at
+     synth_check --dataset coco --image-format png`` (200 iterations at
      batch 8 on the ``easy`` set at 321, ``test_coco``'s streaming mIoU and
      ``miou3``, fatal below 0.5), then the train CLI with ``--dataset coco
      --cache-decoded`` at batch 20 (ms/step beside (c)); (e) ``dump_cues
@@ -159,7 +171,7 @@ Phases, each fatal on failure:
      counters, fatal unless 11 + 11 both ways; (d) ``export_deploy`` at
      (8, 321, 321, 3) against the eager forward with ``floored_softmax``,
      fatal beyond 1e-4 relative; (e) ``python -m dsrg_tpu_torch.tools.export``
-     in both modes on phase 11's ``step_300_params`` (two child processes
+     in both modes on phase 11's ``step_200_params`` (two child processes
      at once, beside (f)'s CPU reference), then a fresh process that loads
      and runs both artifacts without importing jax; (f) the
      ``DenseCRF`` object API at 120x160x21 (Gaussian and bilateral terms, 10
@@ -206,9 +218,10 @@ BF16_CARD_VS_CPU_RTOL = 1e-2
 # (tests/test_torch_port_resnet.py, S1_BF16_NORM_RTOL), an H100 and the CPU
 # 10.9%; the losses hold BF16_CARD_VS_CPU_RTOL
 RESNET_BF16_NORM_RTOL = 0.2
-# the learning check (dsrg_tpu/tools/synth_check.py: 64 / 16 images, 300
-# iterations at batch 8, the bar of a working DSRG stack)
-LEARN_TRAIN, LEARN_VAL, LEARN_ITERS, LEARN_BATCH, LEARN_MIOU = 64, 16, 300, 8, 0.5
+# the learning check (dsrg_tpu/tools/synth_check.py: 64 / 16 images at batch
+# 8, the bar of a working DSRG stack), 200 iterations, not synth_check's 300:
+# the script's time limit; the losses flatten by 150-200 (phase 10's curve)
+LEARN_TRAIN, LEARN_VAL, LEARN_ITERS, LEARN_BATCH, LEARN_MIOU = 64, 16, 200, 8, 0.5
 LEARN_SIZE = 321  # image, crop and prediction size; cues on its (size - 1) / 8 + 1 grid
 GT_SIZES = (321,)  # tools/generate_train_gt.py:48-54
 STAGE2_BATCH = 10
@@ -663,6 +676,8 @@ def _group(kernel: str) -> str:
         return "mmgrid_slice"
     if "pool_bwd" in name:
         return "pool_bwd"
+    if "nccl" in name:
+        return "all-reduce"
     # cuDNN's FFT convolutions run complex ("cf32") GEMMs between their FFTs
     if any(k in name for k in ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn", "fft",
                                "cf32")):
@@ -805,9 +820,8 @@ def _train_phase(pk, rng, out_dir: Path) -> tuple:
         stage1.dsrg_grow = grow
     print(f"region growing: {grow_ms[0]:.2f} ms of the step, "
           f"{region_grow.dsrg_grow.checks - checks0} convergence checks", flush=True)
-    del state, step, model, batch, metrics
-    torch.cuda.empty_cache()
-    return launches, 1e3 * dt
+    # phase 6b reuses the model, its state and the batch
+    return launches, 1e3 * dt, {"state": state, "cfg": cfg, "batch": batch}
 
 
 def _train_card_vs_cpu(rng, bf16: bool = False, resnet: bool = False) -> None:
@@ -1037,8 +1051,8 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> tuple:
     if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
         raise SystemExit(f"stage-2 pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
     _profile("stage 2, one step", lambda: step(batch), out_dir / "chip_smoke_stage2_profile.txt", conv_shapes=True)
+    keep = {"state": state, "cfg": cfg, "batch": batch}  # for phase 8b
     del state, step, model, batch, metrics
-    torch.cuda.empty_cache()
 
     # one tiny step from the same weights on the card and on the CPU
     rng = np.random.default_rng(SEED)
@@ -1056,7 +1070,171 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> tuple:
     for key, b in out["cpu"].items():
         if not abs(out["cuda"][key] - b) <= CARD_VS_CPU_RTOL * abs(b):
             raise SystemExit(f"card vs CPU stage-2 step: {key} {out['cuda'][key]} vs {b}")
-    return launches, 1e3 * dt
+    return launches, 1e3 * dt, keep
+
+
+# data parallelism (phases 6b, 8b, 8c): the one card is a one-rank NCCL group (NCCL
+# refuses two ranks of one communicator on one card; tests/test_torch_port_
+# parallel.py holds two ranks against the JAX package on the CPU)
+DP_STEPS = 3
+DP_PAD = (24, 12)  # stage 1's batch 20 and stage 2's 10, padded as over 8 / 4 ranks
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-5, 2e-5, 1e-7  # tests/test_dp_equivalence.py's bounds
+
+
+def _nccl_group():
+    """A one-rank NCCL group on 127.0.0.1 and the mesh over it.
+    ``parallel.distributed.initialize`` does nothing for one process, as
+    JAX's does; ``init_group`` is its body."""
+    import socket
+
+    from dsrg_tpu_torch.parallel import make_mesh
+    from dsrg_tpu_torch.parallel.distributed import init_group
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    init_group(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    mesh = make_mesh()
+    print(f"data parallelism: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} group of world size "
+          f"{mesh.world_size} on {mesh.device}, made in {time.perf_counter() - t0:.2f} s", flush=True)
+    return mesh
+
+
+def _state_copy(state) -> tuple:
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            {k: v.clone() for k, v in state.optimizer.velocity.items()},
+            state.generator.get_state(), state.optimizer.step_count)
+
+
+def _state_back(state, copy) -> None:
+    params, velocity, generator, step = copy
+    state.model.load_state_dict(params)
+    for k, v in velocity.items():
+        state.optimizer.velocity[k].copy_(v)
+    state.generator.set_state(generator)
+    state.optimizer.step_count = step
+
+
+def _held(what: str, got: tuple, ref: tuple) -> bool:
+    """Loss within DP_LOSS_RTOL and every parameter within DP_PARAM_RTOL /
+    DP_PARAM_ATOL of ``ref`` (metrics, parameters); returns whether the
+    bits are equal."""
+    (m, params), (m_ref, params_ref) = got, ref
+    if not abs(m["loss"] - m_ref["loss"]) <= DP_LOSS_RTOL * abs(m_ref["loss"]):
+        raise SystemExit(f"{what}: loss {m['loss']} vs {m_ref['loss']}")
+    worst = 0.0
+    for k, t in params_ref.items():
+        err = (params[k] - t).abs() - DP_PARAM_RTOL * t.abs()
+        worst = max(worst, float(err.max()))
+    if worst > DP_PARAM_ATOL:
+        raise SystemExit(f"{what}: a parameter exceeds {DP_PARAM_RTOL} relative + {DP_PARAM_ATOL} by {worst}")
+    bits = m == m_ref and all(torch.equal(params[k], t) for k, t in params_ref.items())
+    print(f"  {what}: loss {m['loss']:.8g} vs {m_ref['loss']:.8g}, within the bounds; bits equal: {bits}",
+          flush=True)
+    return bits
+
+
+def _dp_step_phase(pk, what: str, ctx: dict, make, plain_ms: float, pad_to: int, mesh, out_dir: Path) -> dict:
+    """A phase's step again as a data-parallel step over ``mesh``, from the
+    same weights and batch as its plain step: held to it at the default
+    config; the batch padded to ``pad_to`` rows (mirroring and dropout off:
+    the draws of a padded batch are not the unpadded one's) held to the
+    unpadded step; DP_STEPS timed steps with 5 + 5 pool launches each, and
+    one profiled.  Returns the pool launches of the timed steps."""
+    import dataclasses
+
+    from dsrg_tpu_torch.parallel import data_parallel_step, shard_batch
+    from dsrg_tpu_torch.parallel.mesh import all_reduce_sum, pad_batch_to_rows
+
+    state, cfg, batch = ctx["state"], ctx["cfg"], ctx["batch"]
+    model, start = state.model, _state_copy(state)
+
+    def run(config, step_batch, dp: bool) -> tuple:
+        _state_back(state, start)
+        step = make(model, config, state.optimizer, state.generator, axis_name=mesh if dp else None)
+        if dp:
+            step = data_parallel_step(step, mesh)
+            step_batch = shard_batch(step_batch, mesh)
+        m = {k: v.item() for k, v in step(step_batch).items()}
+        return m, {k: v.clone() for k, v in model.state_dict().items()}
+
+    plain = run(cfg, batch, False)
+    _held(f"{what}, data-parallel vs plain step", run(cfg, batch, True), plain)
+    again = run(cfg, batch, False)
+    print(f"  {what}: two plain steps from one state equal in bits: "
+          f"{all(torch.equal(again[1][k], t) for k, t in plain[1].items())}", flush=True)
+    plain_cfg, rate = dataclasses.replace(cfg, mirror=False), model.dropout.rate
+    model.dropout.rate = 0.0
+    # the padded shapes are run once: cuDNN's heuristics, not a timed search
+    torch.backends.cudnn.benchmark = False
+    try:
+        host = {k: v.cpu().numpy() for k, v in batch.items()}
+        padded = {k: torch.from_numpy(v).to(mesh.device) for k, v in pad_batch_to_rows(host, pad_to).items()}
+        _held(f"{what}, padded {cfg.batch_size}->{pad_to} (mirror and dropout off) vs unpadded",
+              run(plain_cfg, padded, True), run(plain_cfg, batch, False))
+    finally:
+        model.dropout.rate = rate
+        torch.backends.cudnn.benchmark = True
+    _state_back(state, start)
+    step = data_parallel_step(make(model, cfg, state.optimizer, state.generator, axis_name=mesh), mesh)
+    local = shard_batch(batch, mesh)
+    step(local)
+    torch.cuda.synchronize()
+    _zero_counts(pk)
+    t0 = time.perf_counter()
+    metrics = [step(local) for _ in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / DP_STEPS
+    launches = _launch_counts(pk)
+    if not all(np.isfinite(v.item()) for m in metrics for v in m.values()):
+        raise SystemExit(f"{what}: non-finite data-parallel metrics")
+    print(f"main path ({what}, data-parallel over NCCL, world size {mesh.world_size}): {1e3 * dt:.1f} ms/step "
+          f"over {DP_STEPS} steps, against the plain step's {plain_ms:.1f} ms; launches {launches}", flush=True)
+    if launches != {n: 0 if n.endswith("_bf16") else 5 * DP_STEPS for n in launches}:
+        raise SystemExit(f"{what}: data-parallel pool launches {launches}, expected {5 * DP_STEPS} of each fp32 one")
+    # the reduction alone: one rank's NCCL all-reduce may copy nothing, the
+    # concatenation and the split remain
+    grads = [torch.zeros_like(p) for p in state.optimizer.params.values()]
+    grads += [torch.zeros((), device=mesh.device) for _ in range(5)]
+    all_reduce_sum(grads, mesh)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(10):
+        all_reduce_sum(grads, mesh)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ar_ms = ev[0].elapsed_time(ev[1]) / 10
+    print(f"  {what}: the coalesced all-reduce of {sum(g.numel() for g in grads)} fp32 values (concatenation, "
+          f"NCCL all_reduce, split) {ar_ms:.3f} ms, {ar_ms / (1e3 * dt):.4f} of the data-parallel step", flush=True)
+    _profile(f"{what}, data-parallel, one step", lambda: step(local),
+             out_dir / f"chip_smoke_dp_{what.replace(' ', '').replace('-', '')}_profile.txt")
+    return launches
+
+
+def _dp_serving(mk, mesh, params, images, plain_masks) -> dict:
+    """``Predictor(mesh=...)`` on phase 5's chunk in sizes mode with the CRF:
+    the masks of ``predict_masks_device``, 11 + 11 mmgrid launches."""
+    from dsrg_tpu_torch.inference import Predictor
+    from dsrg_tpu_torch.models import DeepLabLargeFOV
+
+    predictor = Predictor(DeepLabLargeFOV(num_classes=21), params, num_classes=21, mesh=mesh)
+    predictor.predict_masks_device(images, sizes=SIZES)  # warm-up
+    torch.cuda.synchronize()
+    mk.splat.launches = mk.slice.launches = 0
+    t0 = time.perf_counter()
+    masks = predictor.predict_masks_device(images, sizes=SIZES)
+    dt = time.perf_counter() - t0
+    counts = {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches}
+    equal = all(np.array_equal(a, b) for a, b in zip(masks, plain_masks))
+    print(f"main path (served chunk over a mesh of {len(mesh.devices)} device): {1e3 * dt:.1f} ms/chunk of "
+          f"{len(images)}, launches {counts}, masks equal to predict_masks_device's: {equal}", flush=True)
+    if counts != {"mmgrid_splat": 11, "mmgrid_slice": 11}:
+        raise SystemExit(f"served chunk over a mesh: kernel launches {counts}, expected 11 of each")
+    if not equal:
+        raise SystemExit("served chunk over a mesh: masks differ from predict_masks_device's")
+    return counts
 
 
 PRECISIONS = (("fp32", False), ("tf32", True), ("bf16", False))  # (name, TF32 on)
@@ -1295,7 +1473,7 @@ def _learning_phase(pk, dev, out_dir: Path) -> dict:
 
 # the recipe on files (dsrg_tpu/tools/synth_check.py --two-stage with the CRF
 # on, at the reference's batches for the trainers' own runs)
-RECIPE_ITERS, RECIPE_BATCH = 300, 8
+RECIPE_ITERS, RECIPE_BATCH = LEARN_ITERS, 8
 GEOM_ITERS, GEOM_EVERY, GEOM_RESUME_TO, GEOM_F_ITERS = 12, 6, 18, 15
 KERNEL_NAMES = ("mmgrid_splat", "mmgrid_slice", "pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16")
 
@@ -1906,7 +2084,7 @@ def _coco_step(pk, root: Path, stage1_ms: float, out_dir: Path) -> dict:
 
 def _coco_learning(pk, mk, base: Path, logs: Path) -> tuple:
     """(d) ``synth_check --dataset coco`` (a child process): the easy tree at
-    321 as PNGs, stage s for 300 iterations at batch 8, scored by
+    321 as PNGs, stage s for LEARN_ITERS iterations at batch 8, scored by
     ``test_coco``'s streaming mIoU and the honest miou3; then the train CLI
     with ``--dataset coco --cache-decoded`` at batch 20.  Returns the
     children's launches and the CLI's ms/step."""
@@ -2440,10 +2618,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("5 (serving)")
 
-    train_launches, stage1_ms = _train_phase(pk, rng, out_dir)
+    train_launches, stage1_ms, stage1_ctx = _train_phase(pk, rng, out_dir)
     launches.update(train_launches)
     _train_card_vs_cpu(rng)
     phase_done("6 (stage-1 step)")
+    import torch.distributed as dist
+
+    from dsrg_tpu_torch.train.stage1 import make_stage1_step
+    from dsrg_tpu_torch.train.stage2 import make_stage2_step
+
+    mesh = _nccl_group()
+    for k, v in _dp_step_phase(pk, "stage 1", stage1_ctx, make_stage1_step, stage1_ms, DP_PAD[0], mesh,
+                               out_dir).items():
+        launches[k] += v
+    del stage1_ctx
+    torch.cuda.empty_cache()
+    phase_done("6b (data-parallel stage-1 step)")
 
     # the pseudo ground truth: a predictor of the same net and weights, as
     # generate_train_gt.py makes one from the stage-1 snapshot
@@ -2456,10 +2646,20 @@ def main() -> int:
     del predictor, cpu_pred
     torch.cuda.empty_cache()
     phase_done("7 (pseudo ground truth)")
-    stage2_launches, stage2_ms = _stage2_phase(pk, images, gt_masks, out_dir)
+    stage2_launches, stage2_ms, stage2_ctx = _stage2_phase(pk, images, gt_masks, out_dir)
     for k, v in stage2_launches.items():
         launches[k] += v
     phase_done("8 (stage-2 step)")
+    for k, v in _dp_step_phase(pk, "stage 2", stage2_ctx, make_stage2_step, stage2_ms, DP_PAD[1], mesh,
+                               out_dir).items():
+        launches[k] += v
+    del stage2_ctx
+    torch.cuda.empty_cache()
+    phase_done("8b (data-parallel stage-2 step)")
+    for k, v in _dp_serving(mk, mesh, params, images, sizes_masks).items():
+        launches[k] += v
+    dist.destroy_process_group()
+    phase_done("8c (served chunk over a mesh)")
 
     for k, v in _precision_phase(pk, mk, dev, images, gt_masks, params, sizes_masks, out_dir).items():
         launches[k] = launches.get(k, 0) + v

@@ -13,27 +13,31 @@ marks every tensor as used by that stream (``record_stream``).  Without the
 side stream a copy issued from the worker would queue behind the step on the
 default stream; without ``record_stream`` the caching allocator could hand
 the copy's memory to the side stream again while the step still reads it.
-The data-parallel padding of the JAX loader (``mesh``, ``pad_rows``,
-``n_valid``) waits for the port's scale-out (ROADMAP.md Queue 1 item 8).
+With a ``mesh`` the worker pads each batch (``parallel/mesh.py``) before its
+copy to this rank's device, as the JAX loader pads before it shards.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from dsrg_tpu_torch._device import resolve_device
+from dsrg_tpu_torch.parallel.mesh import Mesh, pad_batch_to_multiple, pad_batch_to_rows
 
 
 class PrefetchLoader:
     def __init__(self, dataset: Iterable[dict], device=None, prefetch: int = 2,
-                 half_images: bool = True, device_in_worker: bool = True):
+                 half_images: bool = True, device_in_worker: bool = True,
+                 mesh: Optional[Mesh] = None, pad_rows: Optional[int] = None,
+                 n_valid: Optional[int] = None):
         """``device``: where batches go, the card by default (``"cpu"`` for
-        the plain path; raises where CUDA is asked for and absent).
+        the plain path; raises where CUDA is asked for and absent).  With a
+        ``mesh``, its device (this rank's).
 
         ``half_images``: transfer float 'images' arrays as float16 — halves
         host->device bytes (the train step casts back to f32; the ~0.1
@@ -43,9 +47,18 @@ class PrefetchLoader:
         ``device_in_worker``: issue the copy from the worker thread (default)
         so the transfer overlaps the in-flight step; False copies in
         ``__next__``.
+
+        ``mesh``: pad every batch to this process's device multiple with a
+        ``pad_mask`` (the steps mask pad rows out exactly); with
+        ``pad_rows`` / ``n_valid``, to exactly ``pad_rows`` rows of which the
+        first ``n_valid`` are real (this process's share of an uneven global
+        batch, ``tools/train.py``).
         """
         self.dataset = dataset
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.pad_rows = pad_rows
+        self.n_valid = n_valid
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.half_images = half_images
         self.device_in_worker = device_in_worker
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -60,6 +73,11 @@ class PrefetchLoader:
         if (self.half_images and "images" in batch
                 and np.issubdtype(np.asarray(batch["images"]).dtype, np.floating)):
             batch["images"] = np.asarray(batch["images"], np.float16)
+        if self.mesh is not None:
+            if self.pad_rows is not None:
+                batch = pad_batch_to_rows(batch, self.pad_rows, self.n_valid)
+            else:
+                batch = pad_batch_to_multiple(batch, len(self.mesh.devices))
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if self._stream is None:
             return host, None
@@ -100,9 +118,13 @@ class PrefetchLoader:
         return batch
 
     def close(self) -> None:
+        """Stop the worker and wait until it has: it finishes the batch in
+        hand (a thread still inside a decode or a copy when the interpreter
+        exits can abort the process)."""
         self._stop.set()
-        try:
-            while True:
-                self.queue.get_nowait()
-        except queue.Empty:
-            pass
+        while self._thread.is_alive():
+            try:  # free a worker blocked on a full queue
+                self.queue.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()

@@ -14,11 +14,15 @@ the dense CRF (10 mean-field iterations at scale factor 1); argmax.
 * The device pipeline (``predict_masks_device`` / ``iter_masks_device``)
   resizes on the card (per-image align-corners zoom matrices) and runs the
   masked matmul-grid CRF on the shared padded canvas; the host ships one
-  uint8 canvas per chunk and receives one uint8 mask per image.
+  uint8 canvas per chunk and receives one uint8 mask per image.  With a
+  ``mesh`` the chunk pads to a multiple of the mesh's devices and each
+  device runs its rows on its own replica of the model.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import inspect
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -83,7 +87,7 @@ def _softmax_floor(scores: np.ndarray) -> np.ndarray:
 
 class Predictor:
     def __init__(self, model: torch.nn.Module, params=None, num_classes: int = 21,
-                 bucket: int = 1, device=None):
+                 bucket: int = 1, device=None, mesh=None):
         """``model``: either family (``DeepLabLargeFOV``, or
         ``ResNet101DeepLab``, whose frozen BN statistics are buffers of the
         module, so one state_dict carries all its variables, as the JAX
@@ -92,12 +96,21 @@ class Predictor:
         forward inputs up to 8k+1 shape buckets (masked, so exact) instead
         of forwarding each image at its own shape.  ``device`` defaults to
         the card and raises where CUDA is absent; pass ``"cpu"`` to run the
-        plain versions."""
-        self.device = resolve_device(device)
+        plain versions.  ``mesh``: a ``parallel.Mesh``; the device pipeline
+        then splits each chunk over its devices (this process's), each with
+        a replica of the model (per-image work needs no collective), and
+        ``device`` is the mesh's first."""
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         if params is not None:
             model.load_state_dict({k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
                                    for k, v in params.items()})
         self.model = model.to(self.device).eval()
+        # one model per distinct device of the mesh, the given one on the first
+        self._replicas = {self.device: self.model}
+        for dev in (mesh.devices if mesh is not None else ()):
+            if dev not in self._replicas:
+                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
         self.num_classes = num_classes
         self.bucket = max(int(bucket), 1)
         self._pool = None  # the host zooms' thread pool, made at first use
@@ -281,9 +294,10 @@ class Predictor:
     # -- device pipeline -------------------------------------------------------
 
     def _build_device_ms(self, ph: int, pw: int, sizes: Optional[tuple],
-                         scales: Optional[tuple], smooth: bool):
-        """The whole chunk pipeline as one function of (canvas_u8, dims)."""
-        model = self.model
+                         scales: Optional[tuple], smooth: bool, model: Optional[torch.nn.Module] = None):
+        """The whole chunk pipeline as one function of (canvas_u8, dims), on
+        ``model`` (by default the predictor's)."""
+        model = self.model if model is None else model
         # per multi-scale entry: static forward-canvas dims, the per-image
         # valid extent on it, and whether the forward must mask
         if sizes is not None:
@@ -342,18 +356,24 @@ class Predictor:
             raise ValueError("exactly one of sizes/scales must be given")
         ph = _bucket(max(im.shape[0] for im in images_rgb), canvas_bucket)
         pw = _bucket(max(im.shape[1] for im in images_rgb), canvas_bucket)
-        canvas, dims = pack_canvas(images_rgb, len(images_rgb), ph, pw)
-        fn = self._build_device_ms(ph, pw, tuple(sizes) if sizes is not None else None,
-                                   tuple(scales) if scales is not None else None, bool(smooth))
-        with torch.inference_mode():
-            masks = fn(torch.from_numpy(canvas).to(self.device),
-                       torch.from_numpy(dims).to(self.device))
+        devices = self.mesh.devices if self.mesh is not None else (self.device,)
+        per = -(-len(images_rgb) // len(devices))  # rows per device, the chunk padded to a multiple
+        canvas, dims = pack_canvas(images_rgb, per * len(devices), ph, pw)
+        sizes_t = tuple(sizes) if sizes is not None else None
+        scales_t = tuple(scales) if scales is not None else None
+        masks = []
+        for i, dev in enumerate(devices):
+            fn = self._build_device_ms(ph, pw, sizes_t, scales_t, bool(smooth), self._replicas[dev])
+            rows = slice(i * per, (i + 1) * per)
+            with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
+                                          else contextlib.nullcontext()):
+                masks.append(fn(torch.from_numpy(canvas[rows]).to(dev), torch.from_numpy(dims[rows]).to(dev)))
         return images_rgb, masks
 
     @staticmethod
     def _finish_device_ms(submitted) -> list:
         images_rgb, dev_q = submitted
-        q = dev_q.cpu().numpy()
+        q = np.concatenate([m.cpu().numpy() for m in dev_q])
         return [q[i, : im.shape[0], : im.shape[1]] for i, im in enumerate(images_rgb)]
 
     def iter_masks_device(self, images_iter, sizes: Optional[Sequence[int]] = None,

@@ -3,10 +3,9 @@
 
 The sources are the JAX package's own (``native/crf_cpu.cpp``,
 ``region_grow.cpp``, ``permutohedral_cpu.cpp``), compiled with ``g++`` and
-the flags of ``native/Makefile`` (OpenMP where the compiler has it:
-:func:`flags`) into ``dsrg_tpu_torch/_build/`` under a name that carries a
-hash of the sources, the flags and the host's CPU (``-march=native``), at
-first use.
+the flags of ``native/Makefile`` (:func:`flags`) into
+``dsrg_tpu_torch/_build/`` under a name that carries a hash of the sources,
+the flags and the host's CPU (``-march=native``), at first use.
 Nothing is written into ``native/``.  A failed build raises with the
 compiler's output: no caller falls back to another engine.
 
@@ -23,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
@@ -32,6 +32,7 @@ import numpy as np
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "native"
 SOURCES = ("crf_cpu.cpp", "region_grow.cpp", "permutohedral_cpu.cpp")
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SERIAL_RUNTIME = Path(__file__).resolve().parent / "csrc" / "gomp_serial.cpp"
 # native/Makefile's CXXFLAGS and OMPFLAGS
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 OMP_FLAGS = ("-fopenmp",)
@@ -70,26 +71,44 @@ def _has_openmp(cxx: str) -> bool:
         probe.with_suffix(".out").unlink(missing_ok=True)
 
 
+def _serial_include() -> Path:
+    return BUILD_DIR / "serial_include"
+
+
 def flags(cxx: str) -> tuple:
-    """The Makefile's flags: CXXFLAGS and OMPFLAGS (``-fopenmp``) where the
-    compiler has OpenMP.  Without it, as ``make OMPFLAGS=`` builds, the
-    ``#pragma omp`` loops run serially, with the same results (each
-    parallelises independent rows), and an empty ``<omp.h>`` from
-    ``_build/serial_include`` stands in for the missing header."""
+    """The Makefile's flags: CXXFLAGS and OMPFLAGS (``-fopenmp``).
+
+    Where the compiler has no libgomp, the sources still compile with
+    ``-fopenmp`` and link against ``csrc/gomp_serial.cpp``, a one-thread
+    stand-in for the runtime, with an empty ``<omp.h>`` from
+    ``_build/serial_include`` in case the header is missing too.  The loops
+    are then the OpenMP build's code, and each ``parallel for`` splits
+    independent rows, so the results are the OpenMP build's bits.  A build
+    without ``-fopenmp`` (``make OMPFLAGS=``) would not give them: with
+    ``-march=native`` g++ may compile a loop outside an OpenMP region with
+    other FMA contractions (``build_kernel``'s distance sum, inlined with its
+    constant feature width) than the same loop outlined inside one."""
     if _has_openmp(cxx):
         return CXX_FLAGS + OMP_FLAGS
-    shim = BUILD_DIR / "serial_include"
+    shim = _serial_include()
     shim.mkdir(parents=True, exist_ok=True)
-    (shim / "omp.h").write_text("/* a build without OpenMP: no omp_* call is made */\n")
-    return CXX_FLAGS + ("-I" + str(shim),)
+    (shim / "omp.h").write_text("/* a build without libgomp: no omp_* call is made */\n")
+    return CXX_FLAGS + OMP_FLAGS + ("-I" + str(shim),)
 
 
 def library_path(build_flags: tuple) -> Path:
     """Where the library of the current sources, ``build_flags`` and host CPU
     lives (a library built for another CPU is never loaded)."""
-    src = b"".join((SOURCE_DIR / name).read_bytes() for name in SOURCES)
+    src = b"".join((SOURCE_DIR / name).read_bytes() for name in SOURCES) + SERIAL_RUNTIME.read_bytes()
     digest = hashlib.sha256(src + " ".join(build_flags).encode() + _host()).hexdigest()[:16]
     return BUILD_DIR / f"libdsrg_native-{digest}.so"
+
+
+def _run(cmd: list, cwd=None) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=cwd)
+    if proc.returncode != 0:
+        raise RuntimeError(f"native build failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
 
 
 def build() -> Path:
@@ -101,12 +120,18 @@ def build() -> Path:
     if path.exists():
         return path
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [cxx, *build_flags, "-o", str(tmp), *(str(SOURCE_DIR / n) for n in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    sources = [str(SOURCE_DIR / n) for n in SOURCES]
+    try:
+        if "-I" + str(_serial_include()) not in build_flags:
+            _run([cxx, *build_flags, "-o", str(tmp), *sources])
+        else:  # compile with -fopenmp, link without libgomp (see flags)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objs:
+                _run([cxx, *build_flags, "-c", *sources, str(SERIAL_RUNTIME)], cwd=objs)
+                _run([cxx, *CXX_FLAGS, "-Wl,-z,defs", "-o", str(tmp),
+                      *sorted(str(o) for o in Path(objs).glob("*.o"))])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native build failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise
     os.replace(tmp, path)  # atomic: another process never loads a partial file
     return path
 

@@ -29,11 +29,6 @@ from dsrg_tpu_torch.utils.palette import write_png
 from dsrg_tpu_torch.utils.profiling import kernel_launches
 
 
-def not_ported(what: str, item: int) -> SystemExit:
-    """The exit of a flag whose code waits for a later slice of the port."""
-    return SystemExit(f"{what} is not ported to dsrg_tpu_torch yet (ROADMAP.md Queue 1 item {item})")
-
-
 def build_arg_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--images", dest="image_list", required=True, help="id list file")
@@ -64,8 +59,10 @@ def build_arg_parser(description: str) -> argparse.ArgumentParser:
                         "serial per-image inference (the batched CRF is the "
                         "masked matmul grid).")
     p.add_argument("--mesh", action="store_true",
-                   help="data-parallel over all visible devices (ROADMAP.md "
-                        "Queue 1 item 8; exits until then)")
+                   help="data-parallel the device pipeline over all visible "
+                        "devices (each with a replica of the weights; chunks "
+                        "pad to a mesh-divisible batch); with --device cpu a "
+                        "mesh of the one CPU")
     p.add_argument("--skip-existing", action="store_true",
                    help="skip ids whose output png already exists (resume "
                         "an interrupted dump)")
@@ -106,14 +103,19 @@ def load_predictor(
     """A fp32 predictor of a params file (a VGG16-LargeFOV, or with
     ``model_name="resnet101"`` a ResNet-101 and its BN statistics) on
     ``device`` (the card by default, with TF32 off as the JAX package
-    computes).  A mesh exits, naming its ROADMAP.md item."""
-    if mesh:
-        raise not_ported("--mesh", 8)
+    computes).  ``mesh``: the device pipeline splits each chunk over every
+    card of the host (``parallel.make_mesh()``), or over the CPU."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
     model = FAMILIES[model_name](num_classes=num_classes)
-    return Predictor(model, load_params(model_path), num_classes=num_classes, bucket=bucket, device=dev)
+    mesh_obj = None
+    if mesh:
+        from dsrg_tpu_torch.parallel import make_mesh
+
+        mesh_obj = make_mesh(None if dev.type == "cuda" else [dev])
+    return Predictor(model, load_params(model_path), num_classes=num_classes, bucket=bucket, device=dev,
+                     mesh=mesh_obj)
 
 
 def preview_mask(image_rgb: np.ndarray, mask: np.ndarray, num_classes: int) -> None:

@@ -25,8 +25,9 @@ def main(argv=None) -> None:
     p.add_argument("--cues", required=True, help="localization cue pickle (for label sets)")
     args = p.parse_args(argv)
 
-    # --model-name and --mesh reach the predictor, which exits on a mesh
-    # (not ported yet); the JAX tool ignores both and always loads VGG16
+    # --model-name and --mesh reach the predictor (the JAX tool ignores both
+    # and always loads VGG16); predict_mask is the host-zoom path, which a
+    # mesh leaves on the mesh's first device, as JAX's does
     predictor = load_predictor(args.model, args.num_classes, args.model_name, mesh=args.mesh,
                                device=args.device)
     cue_db = CueDB(args.cues, num_classes=args.num_classes)

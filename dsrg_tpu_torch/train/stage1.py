@@ -20,7 +20,12 @@ convolutions).  ``cfg.compute_dtype`` is the model's: a bfloat16 model
 so softmax, CRF, growing and losses stay float32, as in the JAX package.  A
 ResNet's frozen BN statistics are buffers of the module (the JAX step's
 ``extra_vars``): they move with it and no step changes them.
-Data-parallel training waits for the port's ``parallel`` modules.
+With ``axis_name`` (a ``parallel.Mesh``) the step is data-parallel: each
+rank computes its rows, one all-reduce adds the gradients and metric sums
+over the ranks, and every rank makes the same update (JAX's ``psum`` in a
+``shard_map``; ``DistributedDataParallel`` does not apply, since the step
+takes its gradients with ``torch.autograd.grad``, whose hooks DDP never
+sees).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from dsrg_tpu_torch.losses import balanced_seed_loss_per_sample, constrain_loss_
 from dsrg_tpu_torch.ops.crf.api import crf_refine_with_log, crf_refine_with_log_truegrad
 from dsrg_tpu_torch.ops.grow import dsrg_grow
 from dsrg_tpu_torch.ops.softmax import MIN_PROB, clamp_straight_through, floored_softmax
+from dsrg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_step
 from dsrg_tpu_torch.train.train_state import TrainState
 
@@ -108,9 +114,31 @@ def init_stage1(model: nn.Module, cfg: Stage1Config, device=None) -> TrainState:
     return TrainState(model, make_optimizer(model, cfg), generator)
 
 
+def rank_streams(generator: Optional[torch.Generator],
+                 mesh: Optional[Mesh]) -> Callable[[], Optional[torch.Generator]]:
+    """Per step, the random stream of this rank's mirror and dropout draws:
+    JAX's ``fold_in(rng, axis_index)``.  With several ranks each step draws
+    one key from the shared ``generator``, which so advances alike on every
+    rank (a snapshot of it does not depend on the rank), and seeds a
+    generator of this rank's from (key, rank): a resume at the same world
+    size continues every rank's stream.  With one rank it is the shared
+    stream itself, so a one-rank step is the plain step."""
+    if mesh is None or mesh.world_size == 1:
+        return lambda: generator
+    if generator is None:
+        raise ValueError("a data-parallel step needs the train state's generator")
+    own = torch.Generator(device=generator.device)
+
+    def stream() -> torch.Generator:
+        key = int(torch.randint(0, 2**63 - 1, (1,), generator=generator, device=generator.device).item())
+        return own.manual_seed(int(np.random.SeedSequence((key, mesh.rank)).generate_state(1, np.uint64)[0]))
+
+    return stream
+
+
 def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
                      generator: Optional[torch.Generator] = None,
-                     input_mean=BGR_MEAN) -> Callable[[dict], dict]:
+                     input_mean=BGR_MEAN, axis_name: Optional[Mesh] = None) -> Callable[[dict], dict]:
     """Build ``step(batch) -> metrics``, which trains ``model`` in place.
 
     ``batch``: a dict of tensors or arrays with
@@ -122,6 +150,13 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
         the losses, gradients or metrics.
     ``metrics``: 0-d tensors ``loss``, ``loss_seed``, ``loss_constrain``,
     ``seed_pixels`` and ``grad_norm``, as the JAX step returns them.
+    ``axis_name``: a ``parallel.Mesh`` (JAX's mesh axis name; a torch
+    collective names the process group, which the mesh holds).  The batch
+    is then this rank's rows; the losses' weighted sums, the valid count,
+    the seed pixels and the gradients are summed over the ranks before the
+    division and the update, so the clipping sees the global gradient and
+    the metrics are the global ones on every rank.  Each rank draws from
+    its own stream (:func:`rank_streams`).
     Raises ``ValueError`` when ``cfg.compute_dtype`` is not the model's
     (:func:`check_compute_dtype`).
     """
@@ -129,9 +164,11 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
     refine = crf_refine_with_log_truegrad if cfg.crf_true_grad else crf_refine_with_log
     names = list(optimizer.params)
     params = [optimizer.params[n] for n in names]
+    streams = rank_streams(generator, axis_name)
 
     def train_step(batch: dict) -> dict:
         device = params[0].device
+        gen = streams()
 
         def get(key):
             return torch.as_tensor(batch[key], device=device)
@@ -143,11 +180,11 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
         weights = (torch.ones(b, device=device) if batch.get("pad_mask") is None
                    else get("pad_mask").float())
         if cfg.mirror:
-            flip = torch.rand(b, generator=generator, device=device) < 0.5
+            flip = torch.rand(b, generator=gen, device=device) < 0.5
             images = torch.where(flip[:, None, None, None], images.flip(2), images)
             cues = torch.where(flip[:, None, None, None], cues.flip(2), cues)
 
-        scores = model(images, train=True, generator=generator)
+        scores = model(images, train=True, generator=gen)
         probs = clamp_straight_through(floored_softmax(scores), MIN_PROB)
         q_log, q = refine(probs, images, cfg.crf_scale_factor, cfg.crf_iters, cfg.crf_fast)
         cues_new = dsrg_grow(labels, cues, q, th1=cfg.th1, th2=cfg.th2)
@@ -156,18 +193,25 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
         sum_seed = (weights * balanced_seed_loss_per_sample(probs, cues_new)).sum()
         sum_con = (weights * constrain_loss_per_sample(probs, q_log)).sum()
         loss_sum = sum_seed + sum_con
-        grads = torch.autograd.grad(loss_sum, params)
+        grads = list(torch.autograd.grad(loss_sum, params))
+        sums = [t.detach() for t in (loss_sum, sum_seed, sum_con, weights.sum(),
+                                     (cues_new * weights[:, None, None, None]).sum())]
+        if axis_name is not None:
+            reduced = all_reduce_sum(grads + sums, axis_name)
+            grads, sums = reduced[:len(grads)], reduced[len(grads):]
+        loss_sum, sum_seed, sum_con, n_valid, seed_pixels = sums
 
-        inv = 1.0 / torch.clamp_min(weights.sum(), 1.0)
+        inv = 1.0 / torch.clamp_min(n_valid, 1.0)
         grads = {n: g * inv for n, g in zip(names, grads)}
         optimizer.step(grads)
         with torch.no_grad():
             return {
-                "loss": loss_sum.detach() * inv,
-                "loss_seed": sum_seed.detach() * inv,
-                "loss_constrain": sum_con.detach() * inv,
-                "seed_pixels": (cues_new * weights[:, None, None, None]).sum(),
+                "loss": loss_sum * inv,
+                "loss_seed": sum_seed * inv,
+                "loss_constrain": sum_con * inv,
+                "seed_pixels": seed_pixels,
                 "grad_norm": global_norm(grads.values()),
             }
 
+    train_step.axis_name = axis_name
     return train_step

@@ -4,8 +4,8 @@ resumed training run equals an uninterrupted one bit for bit, the inference
 CLIs and ``generate_train_gt`` write the JAX CLIs' masks (>= 0.99 of the
 pixels) from the same weights, ``evaluate`` gives JAX's numbers, and
 ``run_recipe`` / ``synth_check`` run end to end (in-process, and supervised
-with a relaunch).  Every CLI takes ``--help``; flags of later slices exit
-naming their ROADMAP.md item, and those of item 4 (``--dataset coco``) run;
+with a relaunch).  Every CLI takes ``--help``; the flags of ROADMAP.md
+items 4 (``--dataset coco``) and 8 (``--num-processes``, ``--mesh``) run;
 ``--device cuda`` without a card raises."""
 
 import dataclasses
@@ -14,6 +14,8 @@ import json
 import os
 import os.path as osp
 import pickle
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -105,17 +107,21 @@ def test_every_cli_takes_help(name, capsys):
 @pytest.mark.parametrize("tool,argv,item", [
     (train, ["--stage", "s", "--dataset", "coco"], 4),
     (train, ["--stage", "s", "--num-processes", "2"], 8),
-    (train, ["--stage", "f", "--coordinator", "localhost:1234"], 8),
-    (test_ms, ["--images", "x", "--dir", "y", "--model", "z", "--mesh"], 8),
-    (generate_train_gt, ["--images", "x", "--dir", "y", "--model", "z", "--cues", "c", "--mesh"], 8),
+    (train, ["--stage", "f", "--num-processes", "2"], 8),
+    (test_ms, ["--sizes", "41", "57", "--smooth", "--batch", "2", "--mesh"], 8),
+    (generate_train_gt, ["--smooth", "--cues", "CUES", "--mesh"], 8),
     (synth_check, ["--work-dir", "w", "--dataset", "coco"], 4),
 ])
-def test_later_slice_flags_exit_naming_their_item(tool, argv, item, tree, tmp_path):
-    """Item 8's flags exit naming it.  Item 4 (``--dataset coco``) is
-    ported: its cases train and evaluate the 81-class path at crop 41."""
-    if "coco" not in argv:
-        with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
-            tool.main(argv + ["--device", "cpu"])
+def test_later_slice_flags_exit_naming_their_item(tool, argv, item, tree, infer_setup, tmp_path, monkeypatch):
+    """The flags of ROADMAP.md items 4 (``--dataset coco``) and 8 (several
+    processes, ``--mesh``) are ported and run: the 81-class path at crop 41,
+    a two-process trainer against one process on the same global batch, and
+    the inference CLIs' masks with and without ``--mesh``."""
+    if item == 8:
+        if tool is train:
+            _two_process_train(tree, argv[1], tmp_path, monkeypatch)
+        else:
+            _mesh_dump(tool, argv, infer_setup, tmp_path)
         return
     if tool is synth_check:
         miou3 = synth_check.main(["--work-dir", str(tmp_path / "w"), "--dataset", "coco", "--iters", "1",
@@ -132,6 +138,54 @@ def test_later_slice_flags_exit_naming_their_item(tool, argv, item, tree, tmp_pa
                        "--display", "1", "--ship-uint8", "--device", "cpu", "--stall-limit-min", "0"])
     params = ckpt.load_params(str(tmp_path / "m" / "step_1_params"))
     assert params["fc8-SEC_1.weight"].shape[0] == 81  # --num-classes 21 becomes 81
+
+
+def _losses(path):
+    rows = [json.loads(ln) for ln in open(path)]
+    assert [r["step"] for r in rows] == [1, 2]  # one line per step: rank 0 alone logs
+    return [r["loss"] for r in rows]
+
+
+def _two_process_train(tree, stage, tmp_path, monkeypatch):
+    """``train --num-processes 2`` as two gloo ranks (child processes) for 2
+    iterations at global batch 2, mirroring and dropout off in both runs
+    (``tests/_torch_dist_worker.py cli``): both exit 0, rank 0 alone prints,
+    logs and snapshots, and its losses equal a one-process run's."""
+    from tests._torch_dist_worker import CLI_PATCHES, free_port
+
+    for name, value in CLI_PATCHES.items():
+        monkeypatch.setattr(train, name, value)
+    train.main(_stage_args(tree, stage, tmp_path / "one", 2, ["--display", "1", "--metrics-log",
+                                                                str(tmp_path / "one.jsonl")]))
+    argv = _stage_args(tree, stage, tmp_path / "two", 2, ["--display", "1", "--metrics-log",
+                                                          str(tmp_path / "two.jsonl"), "--sync-snapshots",
+                                                          "--num-processes", "2", "--coordinator",
+                                                          f"127.0.0.1:{free_port()}"])
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    worker = osp.join(osp.dirname(osp.abspath(__file__)), "_torch_dist_worker.py")
+    procs = [subprocess.Popen([sys.executable, worker, "cli", *argv, "--process-id", str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(2)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    assert "data-parallel over 2 devices across 2 processes, 1 images/device" in outs[0]
+    assert "snapshot ->" in outs[0] and "iter 2: loss" in outs[0]
+    assert "data-parallel" not in outs[1] and "snapshot ->" not in outs[1] and "iter " not in outs[1]
+    assert sorted(os.listdir(tmp_path / "two")) == ["step_2", "step_2_params"]
+    np.testing.assert_allclose(_losses(tmp_path / "two.jsonl"), _losses(tmp_path / "one.jsonl"), rtol=1e-5)
+
+
+def _mesh_dump(tool, argv, infer_setup, tmp_path):
+    """``--mesh --device cpu`` writes the masks of the run without it."""
+    base, _ = infer_setup
+    gen = tool is generate_train_gt
+    argv = [str(base / "cues.pickle") if a == "CUES" else a for a in argv]
+    common = ["--images", str(base / ("input_list.txt" if gen else "ids.txt")), "--dir", str(base),
+              "--num-classes", "6", "--model", str(base / "params"), "--device", "cpu"]
+    tool.main(common + argv + ["--output", str(tmp_path / "mesh")])
+    tool.main(common + [a for a in argv if a != "--mesh"] + ["--output", str(tmp_path / "plain")])
+    assert _agreement(tmp_path / "mesh", tmp_path / "plain", ["img_a", "img_b"]) == 1.0
 
 
 def test_device_cuda_without_a_card_raises(tree, tmp_path, monkeypatch):
