@@ -1507,17 +1507,17 @@ def _launch_lines(lines) -> list:
 def _display_ms(lines, first: int, last: int, batch: int) -> tuple:
     """Steady ms/step from the arrival of the display lines ``iter first``
     and ``iter last`` (each ends in a synchronising metrics transfer), and the
-    StepTimer's EMA of the last one."""
+    StepTimer's p50 over the display window of the last one."""
     at = {}
-    ema = None
+    p50 = None
     for t, line in lines:
-        m = re.match(r"iter (\d+): loss = \S+(?: \((\d+) ms/iter, ([\d.]+) img/s\))?", line)
+        m = re.match(r"iter (\d+): loss = \S+(?: \(ms/iter p50 (\d+), p90 \d+, max \d+; ([\d.]+) img/s\))?", line)
         if m:
             at[int(m.group(1))] = t
             if int(m.group(1)) == last and m.group(2):
-                ema = float(m.group(2))
+                p50 = float(m.group(2))
     ms = 1e3 * (at[last] - at[first]) / (last - first)
-    return ms, batch * 1e3 / ms, ema
+    return ms, batch * 1e3 / ms, p50
 
 
 def _check_masks(mask_dir: Path, ids, shape) -> None:
@@ -1688,12 +1688,12 @@ def _recipe_phase(dev, out_dir: Path, in_memory_ms: dict) -> dict:
     for name, n_steps, (first, last), batch, mem in (
             ("s", GEOM_ITERS, (8, 12), batch_s, "s"), ("s resumed", GEOM_RESUME_TO - GEOM_ITERS, (14, 18), batch_s, "s"),
             ("f", GEOM_F_ITERS, (4, 10), batch_f, "f")):
-        ms, ips, ema = _display_ms(runs[name], first, last, batch)
+        ms, ips, p50 = _display_ms(runs[name], first, last, batch)
         launches = _launch_lines(runs[name])[-1]
         add(launches)
         print(f"trainer CLI (stage {name}, batch {batch} @ {LEARN_SIZE}^2, fp32, TF32 off): {ms:.1f} ms/step, "
-              f"{ips:.2f} images/s over steps {first + 1}-{last} (display lines); StepTimer EMA at iter {last} "
-              f"{ema} ms/iter (its average starts at the first, warm-up step); in memory (phase "
+              f"{ips:.2f} images/s over steps {first + 1}-{last} (display lines); StepTimer p50 at iter {last} "
+              f"{p50} ms/iter (over the display window); in memory (phase "
               f"{6 if mem == 's' else 8}) {in_memory_ms[mem]:.1f} ms/step; launches {launches}", flush=True)
         if launches["pool_bwd_h"] != 5 * n_steps or launches["pool_bwd_w"] != 5 * n_steps:
             raise SystemExit(f"trainer CLI stage {name}: pool launches {launches}, expected {5 * n_steps} each")
@@ -1921,10 +1921,10 @@ def _resnet_clis(dev, out_dir: Path) -> dict:
         add(runs[name])
         if launches["pool_bwd_h"] != n_steps or launches["pool_bwd_w"] != n_steps:
             raise SystemExit(f"ResNet train CLI ({name}): pool launches {launches}, expected {n_steps} each")
-    ms, ips, ema = _display_ms(runs["first"], 2, RESNET_CLI_ITERS, TRAIN_BATCH)
+    ms, ips, p50 = _display_ms(runs["first"], 2, RESNET_CLI_ITERS, TRAIN_BATCH)
     print(f"ResNet train CLI (stage s, batch {TRAIN_BATCH} @ {LEARN_SIZE}^2, fp32, TF32 off, warm start from "
-          f"calibrate_bn's file): {ms:.1f} ms/step over steps 3-{RESNET_CLI_ITERS} (display lines), StepTimer EMA "
-          f"{ema} ms/iter; losses {losses} (a trend, not checked); the resumed process continued at step "
+          f"calibrate_bn's file): {ms:.1f} ms/step over steps 3-{RESNET_CLI_ITERS} (display lines), StepTimer p50 "
+          f"{p50} ms/iter; losses {losses} (a trend, not checked); the resumed process continued at step "
           f"{RESNET_CLI_ITERS}; launches {_launch_lines(runs['first'])[-1]} / {_launch_lines(runs['resumed'])[-1]}",
           flush=True)
     params = ckpt.load_params(str(snap / f"step_{RESNET_CLI_RESUME_TO}_params"))
@@ -2109,13 +2109,13 @@ def _coco_learning(pk, mk, base: Path, logs: Path) -> tuple:
         "--stage", "s", "--dataset", "coco", "--root", str(root) + "/", "--pair-list", pairs,
         "--snapshot-dir", base / "cli", "--max-iter", COCO_CLI_ITERS, "--snapshot-every", COCO_CLI_ITERS,
         "--display", 2, "--dtype", "float32", "--cache-decoded"], logs / "train_coco_cli.log")
-    ms, ips, ema = _display_ms(cli, COCO_CLI_FIRST, COCO_CLI_LAST, 20)
+    ms, ips, p50 = _display_ms(cli, COCO_CLI_FIRST, COCO_CLI_LAST, 20)
     launches = _launch_lines(cli)[-1]
     for k in KERNEL_NAMES:
         counts[k] += launches.get(k, 0)
     cached = sorted(p.name for p in (base / "cli" / "decoded_cache").iterdir())
     print(f"COCO train CLI (--cache-decoded, batch 20 @ {LEARN_SIZE}^2, fp32): {ms:.1f} ms/step, {ips:.2f} images/s "
-          f"over steps {COCO_CLI_FIRST + 1}-{COCO_CLI_LAST} (display lines); StepTimer EMA {ema} ms/iter; launches "
+          f"over steps {COCO_CLI_FIRST + 1}-{COCO_CLI_LAST} (display lines); StepTimer p50 {p50} ms/iter; launches "
           f"{launches}; cache files {cached}", flush=True)
     if launches["pool_bwd_h"] != 5 * COCO_CLI_ITERS or launches["pool_bwd_w"] != 5 * COCO_CLI_ITERS:
         raise SystemExit(f"COCO train CLI: pool launches {launches}")

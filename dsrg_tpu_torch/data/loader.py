@@ -28,6 +28,7 @@ import torch
 
 from dsrg_tpu_torch._device import resolve_device
 from dsrg_tpu_torch.parallel.mesh import Mesh, pad_batch_to_multiple, pad_batch_to_rows
+from dsrg_tpu_torch.utils.profiling import span
 
 
 class PrefetchLoader:
@@ -103,6 +104,7 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator[dict]:
         return self
 
+    @span("dsrg.loader.next")
     def __next__(self) -> dict:
         item = self.queue.get()
         if item is None:

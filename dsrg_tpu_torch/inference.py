@@ -24,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import inspect
+import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
@@ -36,6 +37,7 @@ from dsrg_tpu_torch._device import resolve_device
 from dsrg_tpu_torch.data.voc import BGR_MEAN
 from dsrg_tpu_torch.ops.crf.api import CRF
 from dsrg_tpu_torch.ops.crf.mmgrid import mean_field_mmgrid
+from dsrg_tpu_torch.utils.profiling import span
 
 EPS = 1e-5  # probability floor (test-ms.py:102-103)
 
@@ -114,6 +116,7 @@ class Predictor:
         self.num_classes = num_classes
         self.bucket = max(int(bucket), 1)
         self._pool = None  # the host zooms' thread pool, made at first use
+        self._chunk_ids = itertools.count()  # device-pipeline chunks, the spans' shared ids
         # a model that takes per-image valid extents forwards a padded canvas
         # exactly as the image alone (models/masking.py)
         self._exact_canvas = "valid_hw" in inspect.signature(type(model).forward).parameters
@@ -350,31 +353,37 @@ class Predictor:
             self._submit_device_ms(images_rgb, sizes, scales, smooth, canvas_bucket))
 
     def _submit_device_ms(self, images_rgb, sizes, scales, smooth, canvas_bucket):
-        """Enqueue one chunk on the card; returns (images, device masks)
-        without waiting, so a caller can enqueue the next chunk first."""
+        """Enqueue one chunk on the card; returns (images, device masks,
+        chunk id) without waiting, so a caller can enqueue the next chunk
+        first.  The id is the chunk's sequence number, which the spans
+        ``dsrg.serve.submit`` and ``dsrg.serve.finish`` of one chunk share."""
         if (sizes is None) == (scales is None):
             raise ValueError("exactly one of sizes/scales must be given")
-        ph = _bucket(max(im.shape[0] for im in images_rgb), canvas_bucket)
-        pw = _bucket(max(im.shape[1] for im in images_rgb), canvas_bucket)
-        devices = self.mesh.devices if self.mesh is not None else (self.device,)
-        per = -(-len(images_rgb) // len(devices))  # rows per device, the chunk padded to a multiple
-        canvas, dims = pack_canvas(images_rgb, per * len(devices), ph, pw)
-        sizes_t = tuple(sizes) if sizes is not None else None
-        scales_t = tuple(scales) if scales is not None else None
-        masks = []
-        for i, dev in enumerate(devices):
-            fn = self._build_device_ms(ph, pw, sizes_t, scales_t, bool(smooth), self._replicas[dev])
-            rows = slice(i * per, (i + 1) * per)
-            with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
-                                          else contextlib.nullcontext()):
-                masks.append(fn(torch.from_numpy(canvas[rows]).to(dev), torch.from_numpy(dims[rows]).to(dev)))
-        return images_rgb, masks
+        chunk_id = next(self._chunk_ids)
+        with span("dsrg.serve.submit", chunk_id):
+            ph = _bucket(max(im.shape[0] for im in images_rgb), canvas_bucket)
+            pw = _bucket(max(im.shape[1] for im in images_rgb), canvas_bucket)
+            devices = self.mesh.devices if self.mesh is not None else (self.device,)
+            per = -(-len(images_rgb) // len(devices))  # rows per device, the chunk padded to a multiple
+            canvas, dims = pack_canvas(images_rgb, per * len(devices), ph, pw)
+            sizes_t = tuple(sizes) if sizes is not None else None
+            scales_t = tuple(scales) if scales is not None else None
+            masks = []
+            for i, dev in enumerate(devices):
+                fn = self._build_device_ms(ph, pw, sizes_t, scales_t, bool(smooth), self._replicas[dev])
+                rows = slice(i * per, (i + 1) * per)
+                with torch.inference_mode(), (torch.cuda.device(dev) if dev.type == "cuda"
+                                              else contextlib.nullcontext()):
+                    masks.append(fn(torch.from_numpy(canvas[rows]).to(dev),
+                                    torch.from_numpy(dims[rows]).to(dev)))
+        return images_rgb, masks, chunk_id
 
     @staticmethod
     def _finish_device_ms(submitted) -> list:
-        images_rgb, dev_q = submitted
-        q = np.concatenate([m.cpu().numpy() for m in dev_q])
-        return [q[i, : im.shape[0], : im.shape[1]] for i, im in enumerate(images_rgb)]
+        images_rgb, dev_q, chunk_id = submitted
+        with span("dsrg.serve.finish", chunk_id):
+            q = np.concatenate([m.cpu().numpy() for m in dev_q])
+            return [q[i, : im.shape[0], : im.shape[1]] for i, im in enumerate(images_rgb)]
 
     def iter_masks_device(self, images_iter, sizes: Optional[Sequence[int]] = None,
                           scales: Optional[Sequence[float]] = None, chunk: int = 8,

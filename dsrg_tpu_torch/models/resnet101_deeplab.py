@@ -43,6 +43,7 @@ from dsrg_tpu_torch.models.masking import (
     split_valid_hw,
 )
 from dsrg_tpu_torch.ops.pooling import caffe_max_pool_nchw, caffe_max_pool_train
+from dsrg_tpu_torch.utils.profiling import span
 
 WIDTHS, STRIDES, DILATIONS = (64, 128, 256, 512), (1, 2, 1, 1), (1, 1, 2, 4)
 
@@ -61,7 +62,7 @@ class _FrozenNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mean, var, scale, bias, eps: float):
-        with torch.profiler.record_function("frozen_batch_norm"):
+        with span("frozen_batch_norm"):
             inv = torch.rsqrt(var + eps)
             y = (x - _per_channel(mean)) * _per_channel(inv * scale) + _per_channel(bias)
             ctx.save_for_backward(x, mean, inv, scale)
@@ -69,7 +70,7 @@ class _FrozenNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function("frozen_batch_norm"):
+        with span("frozen_batch_norm"):
             x, mean, inv, scale = ctx.saved_tensors
             gx = (g * _per_channel(inv * scale)).to(x.dtype)
             gscale = (g * (x - _per_channel(mean))).sum((0, 2, 3)) * inv

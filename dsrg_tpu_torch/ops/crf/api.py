@@ -44,6 +44,7 @@ from dsrg_tpu_torch.ops.crf.lattice import mean_field_lattice
 from dsrg_tpu_torch.ops.crf.mmgrid import mean_field_mmgrid
 from dsrg_tpu_torch.ops.interp import zoom_bilinear
 from dsrg_tpu_torch.ops.softmax import MIN_PROB
+from dsrg_tpu_torch.utils.profiling import span
 
 COLOR_FACTOR = 13.0  # the reference CRF's colour scale (pylayers.py:82,335)
 # above this pixel count "auto" leaves the exact engine for the grid: the
@@ -341,6 +342,7 @@ class DenseCRF:
         self._ntypes.append(normalization)
 
 
+@span("dsrg.crf")
 def crf_refine_probs(probs: torch.Tensor, images: torch.Tensor, scale_factor: float = 12.0,
                      maxiter: int = 10, min_prob: float = MIN_PROB,
                      fast: bool = False) -> torch.Tensor:
@@ -376,6 +378,7 @@ class _RefineWithLog(torch.autograd.Function):
         return torch.log(q), q
 
     @staticmethod
+    @span("dsrg.crf")
     def backward(ctx, g_log, _g_q):
         (q,) = ctx.saved_tensors
         return (1.0 - q) * g_log, None, None, None, None

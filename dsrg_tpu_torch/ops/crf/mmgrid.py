@@ -29,6 +29,7 @@ import torch
 
 from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
 from dsrg_tpu_torch.ops.crf.grid import gaussian_axes, separable_gaussian_filter_cf
+from dsrg_tpu_torch.utils.profiling import span
 
 _F32 = torch.float32
 _BF16 = torch.bfloat16
@@ -211,6 +212,7 @@ class MMGridPlan:
         return self._untile_cf(out)[:, :, : self.h, : self.w]
 
 
+@span("dsrg.crf")
 def mean_field_mmgrid(
     unary: torch.Tensor,
     image: torch.Tensor,

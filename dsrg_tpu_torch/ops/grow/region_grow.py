@@ -19,6 +19,9 @@ Reference semantics, bit for bit:
 
 The whole batch grows at once.  Every ``unroll`` dilations one convergence
 check reads a flag back to the host; ``dsrg_grow.checks`` counts them.
+While a profiler records, the grow is the span ``dsrg.grow`` and each host
+read-back (those checks and the present classes' list) a ``dsrg.grow.sync``
+inside it (``utils/profiling.span``).
 Classes absent from every image of the batch are skipped: their seeds stay
 as they are, as the per-image rule leaves them.  No gradient flows.
 :func:`grow_seeds_single` is the grow of one image: the batch of one.
@@ -28,6 +31,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from dsrg_tpu_torch.utils.profiling import span
 
 
 def _dilate8(mask: torch.Tensor) -> torch.Tensor:
@@ -41,8 +46,9 @@ def _flood_fill(seeded: torch.Tensor, mask: torch.Tensor, unroll: int = 4) -> to
     images that converged early are unchanged by the extra dilations."""
     max_iters = seeded.shape[-2] * seeded.shape[-1]
     dsrg_grow.checks += 1
-    if not bool(seeded.any()):
-        return seeded
+    with span("dsrg.grow.sync"):
+        if not bool(seeded.any()):
+            return seeded
     frontier, it = seeded, 0
     while it < max_iters:
         grown = frontier
@@ -50,8 +56,9 @@ def _flood_fill(seeded: torch.Tensor, mask: torch.Tensor, unroll: int = 4) -> to
             grown = torch.maximum(torch.minimum(_dilate8(grown), mask), grown)
         it += unroll
         dsrg_grow.checks += 1
-        if not bool((grown != frontier).any()):
-            return grown
+        with span("dsrg.grow.sync"):
+            if not bool((grown != frontier).any()):
+                return grown
         frontier = grown
     return frontier
 
@@ -63,6 +70,7 @@ def _threshold(th: float, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+@span("dsrg.grow")
 def dsrg_grow(image_labels: torch.Tensor, cues: torch.Tensor, probs_refined: torch.Tensor,
               th1: float = 0.99, th2: float = 0.85) -> torch.Tensor:
     """(B, M) labels, (B, h, w, M) cues and refined probabilities ->
@@ -83,7 +91,9 @@ def dsrg_grow(image_labels: torch.Tensor, cues: torch.Tensor, probs_refined: tor
     label_map = torch.where(bg_hit, 1, label_map)
 
     seed = (cues > 0.5).float().permute(0, 3, 1, 2).contiguous()  # (B, M, h, w)
-    for c in torch.nonzero(present.any(0)).flatten().tolist():
+    with span("dsrg.grow.sync"):
+        classes = torch.nonzero(present.any(0)).flatten().tolist()
+    for c in classes:
         mat = (label_map == c + 1).float()
         is_seed_c = seed[:, c]
         barrier = mat * (1.0 - is_seed_c) * (seed.sum(1) == 1.0).float()

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from dsrg_tpu_torch.ops.pool_kernels import pool_bwd_h, pool_bwd_w
+from dsrg_tpu_torch.utils.profiling import span
 
 
 def _caffe_pool_geometry(size: int, k: int, s: int, p: int):
@@ -79,6 +80,7 @@ class _CaffeMaxPool(torch.autograd.Function):
         return y
 
     @staticmethod
+    @span("dsrg.pool_bwd")
     def backward(ctx, g):
         x, yw = ctx.saved_tensors
         k, s, p = ctx.geom

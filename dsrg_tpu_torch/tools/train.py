@@ -358,7 +358,7 @@ def main(argv=None) -> None:
     rss_limit = watchdog.resolve_limit(args.rss_limit_gb)
     stall = watchdog.StallWatchdog(args.stall_limit_min * 60.0, describe="training-step")
     logger = MetricLogger(args.metrics_log if is_primary else None, average_window=args.display)
-    timer = StepTimer(cfg.batch_size)
+    timer = StepTimer(cfg.batch_size, window=args.display)
     start_iter = state.step
     profiler_ctx = None
     pending = []
@@ -382,8 +382,10 @@ def main(argv=None) -> None:
             print("profile trace ->", args.profile_dir, flush=True)
         if (it + 1) % args.display == 0 and is_primary:
             extra = ""
-            if timer.step_time:
-                extra = f" ({timer.step_time * 1000:.0f} ms/iter, {timer.images_per_sec:.1f} img/s)"
+            times = timer.summary()
+            if times:
+                extra = (f" (ms/iter p50 {times['p50_ms']:.0f}, p90 {times['p90_ms']:.0f}, "
+                         f"max {times['max_ms']:.0f}; {times['images_per_s']:.1f} img/s)")
             print(f"iter {it + 1}: loss = {averaged['loss']:.4f}{extra}", flush=True)
         if args.val_every and (it + 1) % args.val_every == 0 and args.val_ids and is_primary:
             miou = run_validation()

@@ -46,6 +46,7 @@ from dsrg_tpu_torch.ops.softmax import MIN_PROB, clamp_straight_through, floored
 from dsrg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_step
 from dsrg_tpu_torch.train.train_state import TrainState
+from dsrg_tpu_torch.utils.profiling import span
 
 
 def _device_normalize(images: torch.Tensor, mean=BGR_MEAN) -> torch.Tensor:
@@ -166,52 +167,56 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
     params = [optimizer.params[n] for n in names]
     streams = rank_streams(generator, axis_name)
 
+    @span("dsrg.step")
     def train_step(batch: dict) -> dict:
-        device = params[0].device
-        gen = streams()
-
         def get(key):
             return torch.as_tensor(batch[key], device=device)
 
-        images = _device_normalize(get("images"), input_mean)
-        labels = get("labels").float()
-        cues = get("cues").float()
-        b = images.shape[0]
-        weights = (torch.ones(b, device=device) if batch.get("pad_mask") is None
-                   else get("pad_mask").float())
-        if cfg.mirror:
-            flip = torch.rand(b, generator=gen, device=device) < 0.5
-            images = torch.where(flip[:, None, None, None], images.flip(2), images)
-            cues = torch.where(flip[:, None, None, None], cues.flip(2), cues)
+        with span("dsrg.forward"):
+            device = params[0].device
+            gen = streams()
+            images = _device_normalize(get("images"), input_mean)
+            labels = get("labels").float()
+            cues = get("cues").float()
+            b = images.shape[0]
+            weights = (torch.ones(b, device=device) if batch.get("pad_mask") is None
+                       else get("pad_mask").float())
+            if cfg.mirror:
+                flip = torch.rand(b, generator=gen, device=device) < 0.5
+                images = torch.where(flip[:, None, None, None], images.flip(2), images)
+                cues = torch.where(flip[:, None, None, None], cues.flip(2), cues)
 
-        scores = model(images, train=True, generator=gen)
-        probs = clamp_straight_through(floored_softmax(scores), MIN_PROB)
-        q_log, q = refine(probs, images, cfg.crf_scale_factor, cfg.crf_iters, cfg.crf_fast)
-        cues_new = dsrg_grow(labels, cues, q, th1=cfg.th1, th2=cfg.th2)
-        # weighted SUMS of per-sample losses, divided by the valid count below:
-        # the exact mean over valid samples, whatever the padding
-        sum_seed = (weights * balanced_seed_loss_per_sample(probs, cues_new)).sum()
-        sum_con = (weights * constrain_loss_per_sample(probs, q_log)).sum()
-        loss_sum = sum_seed + sum_con
-        grads = list(torch.autograd.grad(loss_sum, params))
-        sums = [t.detach() for t in (loss_sum, sum_seed, sum_con, weights.sum(),
-                                     (cues_new * weights[:, None, None, None]).sum())]
-        if axis_name is not None:
-            reduced = all_reduce_sum(grads + sums, axis_name)
-            grads, sums = reduced[:len(grads)], reduced[len(grads):]
-        loss_sum, sum_seed, sum_con, n_valid, seed_pixels = sums
+            scores = model(images, train=True, generator=gen)
+            probs = clamp_straight_through(floored_softmax(scores), MIN_PROB)
+        with span("dsrg.loss"):
+            q_log, q = refine(probs, images, cfg.crf_scale_factor, cfg.crf_iters, cfg.crf_fast)
+            cues_new = dsrg_grow(labels, cues, q, th1=cfg.th1, th2=cfg.th2)
+            # weighted SUMS of per-sample losses, divided by the valid count below:
+            # the exact mean over valid samples, whatever the padding
+            sum_seed = (weights * balanced_seed_loss_per_sample(probs, cues_new)).sum()
+            sum_con = (weights * constrain_loss_per_sample(probs, q_log)).sum()
+            loss_sum = sum_seed + sum_con
+        with span("dsrg.backward"):
+            grads = list(torch.autograd.grad(loss_sum, params))
+        with span("dsrg.update"):
+            sums = [t.detach() for t in (loss_sum, sum_seed, sum_con, weights.sum(),
+                                         (cues_new * weights[:, None, None, None]).sum())]
+            if axis_name is not None:
+                reduced = all_reduce_sum(grads + sums, axis_name)
+                grads, sums = reduced[:len(grads)], reduced[len(grads):]
+            loss_sum, sum_seed, sum_con, n_valid, seed_pixels = sums
 
-        inv = 1.0 / torch.clamp_min(n_valid, 1.0)
-        grads = {n: g * inv for n, g in zip(names, grads)}
-        optimizer.step(grads)
-        with torch.no_grad():
-            return {
-                "loss": loss_sum * inv,
-                "loss_seed": sum_seed * inv,
-                "loss_constrain": sum_con * inv,
-                "seed_pixels": seed_pixels,
-                "grad_norm": global_norm(grads.values()),
-            }
+            inv = 1.0 / torch.clamp_min(n_valid, 1.0)
+            grads = {n: g * inv for n, g in zip(names, grads)}
+            optimizer.step(grads)
+            with torch.no_grad():
+                return {
+                    "loss": loss_sum * inv,
+                    "loss_seed": sum_seed * inv,
+                    "loss_constrain": sum_con * inv,
+                    "seed_pixels": seed_pixels,
+                    "grad_norm": global_norm(grads.values()),
+                }
 
     train_step.axis_name = axis_name
     return train_step

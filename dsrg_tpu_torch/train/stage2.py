@@ -30,6 +30,7 @@ from dsrg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
 from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_poly
 from dsrg_tpu_torch.train.stage1 import _device_normalize, check_compute_dtype, init_params, rank_streams
 from dsrg_tpu_torch.train.train_state import TrainState
+from dsrg_tpu_torch.utils.profiling import span
 
 
 def make_optimizer(model: nn.Module, cfg: Stage2Config) -> CaffeSGD:
@@ -72,44 +73,49 @@ def make_stage2_step(model: nn.Module, cfg: Stage2Config, optimizer: CaffeSGD,
     params = [optimizer.params[n] for n in names]
     streams = rank_streams(generator, axis_name)
 
+    @span("dsrg.step")
     def train_step(batch: dict) -> dict:
-        device = params[0].device
-        gen = streams()
-
         def get(key):
             return torch.as_tensor(batch[key], device=device)
 
-        images = _device_normalize(get("images"))
-        labels = get("labels")
-        if cfg.mirror:  # one draw flips image and label map together
-            flip = torch.rand(images.shape[0], generator=gen, device=device) < 0.5
-            images = torch.where(flip[:, None, None, None], images.flip(2), images)
-            labels = torch.where(flip[:, None, None], labels.flip(2), labels)
-        # the Interp shrink of the label map: at 321 -> 41 a strided view
-        # (exact subsampling); int64 for the loss's gather
-        small = caffe_interp_shrink(labels[..., None].float(), cfg.shrink_factor)[..., 0]
-        small = small.contiguous().to(torch.int64)
-        if batch.get("pad_mask") is not None:
-            keep = get("pad_mask")[:, None, None] > 0
-            small = torch.where(keep, small, torch.full_like(small, cfg.ignore_label))
+        with span("dsrg.forward"):
+            device = params[0].device
+            gen = streams()
+            images = _device_normalize(get("images"))
+            labels = get("labels")
+            if cfg.mirror:  # one draw flips image and label map together
+                flip = torch.rand(images.shape[0], generator=gen, device=device) < 0.5
+                images = torch.where(flip[:, None, None, None], images.flip(2), images)
+                labels = torch.where(flip[:, None, None], labels.flip(2), labels)
+            # the Interp shrink of the label map: at 321 -> 41 a strided view
+            # (exact subsampling); int64 for the loss's gather
+            small = caffe_interp_shrink(labels[..., None].float(), cfg.shrink_factor)[..., 0]
+            small = small.contiguous().to(torch.int64)
+            if batch.get("pad_mask") is not None:
+                keep = get("pad_mask")[:, None, None] > 0
+                small = torch.where(keep, small, torch.full_like(small, cfg.ignore_label))
 
-        scores = model(images, train=True, generator=gen)
-        loss_sum, acc_sum, n_valid = softmax_cross_entropy_ignore_sums(
-            scores, small, cfg.ignore_label)
-        grads = list(torch.autograd.grad(loss_sum, params))
-        loss_sum = loss_sum.detach()
-        if axis_name is not None:
-            *grads, loss_sum, acc_sum, n_valid = all_reduce_sum(grads + [loss_sum, acc_sum, n_valid], axis_name)
+            scores = model(images, train=True, generator=gen)
+        with span("dsrg.loss"):
+            loss_sum, acc_sum, n_valid = softmax_cross_entropy_ignore_sums(
+                scores, small, cfg.ignore_label)
+        with span("dsrg.backward"):
+            grads = list(torch.autograd.grad(loss_sum, params))
+        with span("dsrg.update"):
+            loss_sum = loss_sum.detach()
+            if axis_name is not None:
+                *grads, loss_sum, acc_sum, n_valid = all_reduce_sum(grads + [loss_sum, acc_sum, n_valid],
+                                                                    axis_name)
 
-        inv = 1.0 / torch.clamp_min(n_valid, 1.0)
-        grads = {n: g * inv for n, g in zip(names, grads)}
-        optimizer.step(grads)
-        with torch.no_grad():
-            return {
-                "loss": loss_sum * inv,
-                "accuracy": acc_sum * inv,
-                "grad_norm": global_norm(grads.values()),
-            }
+            inv = 1.0 / torch.clamp_min(n_valid, 1.0)
+            grads = {n: g * inv for n, g in zip(names, grads)}
+            optimizer.step(grads)
+            with torch.no_grad():
+                return {
+                    "loss": loss_sum * inv,
+                    "accuracy": acc_sum * inv,
+                    "grad_norm": global_norm(grads.values()),
+                }
 
     train_step.axis_name = axis_name
     return train_step

@@ -18,6 +18,8 @@ pixels is ``(R * 19595 + G * 38470 + B * 7471 + 0x8000) >> 16``.
 :func:`write_png` writes filter 0 (None) on every row, so the files the
 recipe writes itself decode at numpy speed; the Average and Paeth filters
 (which only other writers, PIL among them, choose) take a loop over columns.
+Under a profiler, :func:`read_image_rgb` is the span ``dsrg.io.read`` and
+:func:`write_png` ``dsrg.io.write``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from dsrg_tpu_torch.utils.profiling import span
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (channels, PIL mode)
@@ -192,6 +196,7 @@ def read_raw(path: str) -> np.ndarray:
     return _read_png(path)[0]
 
 
+@span("dsrg.io.read")
 def read_image_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB, as ``np.asarray(Image.open(path).convert("RGB"))``."""
     fmt = _sniff(_head(path))
@@ -229,6 +234,7 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
+@span("dsrg.io.write")
 def write_png(array: np.ndarray, path: str,
               palette: Optional[Sequence[Tuple[int, int, int]]] = None) -> None:
     """Write an (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 array as an

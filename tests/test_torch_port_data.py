@@ -533,10 +533,16 @@ def test_profiling_copies_and_trace(tmp_path):
     timer = profiling.StepTimer(batch_size=4)
     timer.tick()
     timer.tick()
-    assert timer.step_time is not None and timer.images_per_sec > 0
+    times = timer.summary()
+    assert times["p50_ms"] <= times["p90_ms"] <= times["max_ms"] and times["images_per_s"] > 0
+    with profiling.span("before"):  # no profiler: not in the block's table
+        pass
     with profiling.trace(str(tmp_path / "prof")):
-        torch.ones(8) @ torch.ones(8)
+        with profiling.span("dsrg.step"):
+            torch.ones(8) @ torch.ones(8)
     assert (tmp_path / "prof" / "trace.json").exists() and (tmp_path / "prof" / "kernels.txt").exists()
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert list(spans) == ["dsrg.step"] and spans["dsrg.step"]["count"] == 1
     assert set(profiling.kernel_launches()) == {"mmgrid_splat", "mmgrid_slice", "pool_bwd_h", "pool_bwd_w",
                                                 "pool_bwd_h_bf16", "pool_bwd_w_bf16"}
 
