@@ -40,6 +40,12 @@ Phases, each fatal on failure:
      padded two -inf copies (issued to an idle card); then the same checks
      and times at ResNet-101's pool1 (3x3/2/1 over (B, 64, 161, 161)) at
      batch 20 and 10, fp32 and bf16;
+  4b. the Caffe SGD kernel pair (``csrc/caffe_sgd.cu``) against the plain
+     loop on the card at ResNet-101's 320 leaves (clip 10, engaged) and
+     VGG16-LargeFOV's 50 (no clip): w and v bits equal where the clip does
+     not engage, the norm within 1e-6, 2 launches a step; device ms (queued
+     behind a spin) beside the bound, the host ms of issuing it, and the
+     same two for the plain loop and for ``torch._foreach_*``;
   5. the serving path: ``Predictor.predict_masks_device`` with the 21-class,
      4-head VGG16-LargeFOV (random weights from a numpy seed) on 8 synthetic
      500x375 images, in sizes mode (241, 321, 401) and in scales mode
@@ -52,7 +58,8 @@ Phases, each fatal on failure:
      ``make_stage1_step`` with the default ``Stage1Config`` (batch 20 @
      321^2, 21 classes, 4 heads, exact CRF at 41^2, fp32) on a synthetic
      batch; 2 warm-up and 5 timed steps
-     with finite losses and 5 + 5 pool kernel launches per step, one step
+     with finite losses, 5 + 5 pool kernel launches and 2 ``caffe_sgd``
+     launches per step, one step
      under the profiler, one with the region growing timed; then one tiny
      step from the same weights on the card and on the CPU, which must agree;
      6b: a one-rank NCCL group (``parallel.distributed.init_group``; NCCL
@@ -61,7 +68,8 @@ Phases, each fatal on failure:
      parameters within 2e-5 relative of the plain step (whether the bits are
      equal printed, and whether two plain steps' are), the batch padded to 24
      (4 masked rows; mirror and dropout off) against the unpadded step, 3
-     timed steps with 5 + 5 pool launches each, the coalesced all-reduce
+     timed steps with 5 + 5 pool launches and 2 ``caffe_sgd`` each, the
+     coalesced all-reduce
      timed alone (its share of the step) and one step under the profiler;
   7. the pseudo ground truth (``tools/generate_train_gt.py``): a predictor of
      the serving phase's net and weights, ``Predictor.predict_mask(sizes=[321],
@@ -75,8 +83,8 @@ Phases, each fatal on failure:
   8. the stage-2 retrain step: ``init_stage2`` + ``make_stage2_step`` with
      the default ``Stage2Config`` (batch 10 @ 321², 21 classes, 4 heads)
      on crops of phase 7's masks with a band of ignore labels; 2 warm-up
-     and 5 timed steps with finite metrics and 5 + 5 pool launches per
-     step, one step under the profiler; a tiny step card against CPU;
+     and 5 timed steps with finite metrics, 5 + 5 pool and 2 ``caffe_sgd``
+     launches per step, one step under the profiler; a tiny step card against CPU;
      8b: the stage-2 step over the NCCL group as in 6b (padded 10 -> 12);
      8c: ``Predictor(mesh=make_mesh())`` on phase 5's chunk in sizes mode
      with the CRF: phase 5's masks, 11 + 11 mmgrid launches; the group is
@@ -87,7 +95,7 @@ Phases, each fatal on failure:
      ``compute_dtype="bfloat16"``, stage 1 with ``crf_fast=True``; fp32
      with TF32 off is phases 6 and 8, whose profiles also list the
      convolutions by shape): ms/step, images/s, peak memory, the pool kernels'
-     launches by element type and a profile of one step each; a served
+     launches by element type and 2 ``caffe_sgd`` a step and a profile of one step each; a served
      chunk of 8 in sizes mode with a bf16 model; a tiny bf16 step card
      against CPU; TF32 off again after it;
   10. the learning check (``dsrg_tpu/tools/synth_check.py`` in memory): the
@@ -108,14 +116,16 @@ Phases, each fatal on failure:
      iterations at batch 8 (fp32, TF32 off), the ``test_ms`` and
      ``test_ms_f`` dumps at 321 with the CRF, and ``evaluate``; each phase's
      wall time, the dumps' images/s, the children's kernel launches (pool
-     kernels in both trainers, mmgrid kernels in both dumps), every mask read
+     kernels and 2 ``caffe_sgd`` a step in both trainers, mmgrid kernels
+     and no ``caffe_sgd`` in both dumps), every mask read
      back through ``utils/imageio``; fatal if ``miou3`` is below 0.5.  Then
      the train CLI at the reference's batches: stage s (batch 20) for 12
      iterations with a snapshot every 6, a second process with
      ``--auto-resume`` to 18 that must start at 12, and stage f (batch 10)
      for 15 iterations from the recipe's stage-s weights with
      ``--profile-dir`` (steps 10-14): ms/step from the display lines beside
-     phases 6 and 8's in-memory steps, the idle share, launches; the data
+     phases 6 and 8's in-memory steps, the idle share, launches (2
+     ``caffe_sgd`` a step); the data
      order after ``seek`` against the uninterrupted stream; and a full-width
      stage-1 snapshot: its size, sync and async save and restore times, and
      the restored state bit for bit (also when the parameters move while an
@@ -125,14 +135,16 @@ Phases, each fatal on failure:
      (``init_params``, BN calibrated on N(0, 40) images, heads rescaled, as
      ``tools/calibrate_bn.py`` does); the stage-1 step (batch 20) and the
      stage-2 step (batch 10) with the default configs in fp32, TF32 and bf16
-     (1 + 1 pool launches per step, profiles with a batch-norm group); tiny
+     (1 + 1 pool and 2 ``caffe_sgd`` launches per step, profiles with a
+     batch-norm group); tiny
      ResNet steps card vs CPU (fp32 and bf16); a served chunk of 8 in sizes
      mode with the fp32 and the bf16 model (11 + 11 mmgrid launches), masks
      on a small input card vs CPU, and the pseudo ground truth of phase 7's
      images and label sets; then the warm start through the CLIs on phase
      11's tree: ``calibrate_bn`` (statistics moved, the import gives back the
      file's arrays bit for bit), ``train --model resnet101 --weights`` at
-     batch 20 with a snapshot and a resumed second process (the frozen BN
+     batch 20 with a snapshot and a resumed second process (2 ``caffe_sgd``
+     launches a step; the frozen BN
      arrays as the file has them), ``test_ms --model-name resnet101`` (masks
      in range, mmgrid launches), and a full-width ResNet snapshot's size,
      save and restore times;
@@ -148,7 +160,8 @@ Phases, each fatal on failure:
      profile, a small input card vs CPU; (c) ``COCOCueDataset(ship_uint8=
      True)`` batches from a PNG-encoded synthetic tree and the default
      ``Stage1Config`` at 81 classes with ``input_mean=COCO_MEAN`` (batch 20
-     @ 321^2): 2 warm-up and 5 timed steps, 5 + 5 pool launches per step,
+     @ 321^2): 2 warm-up and 5 timed steps, 5 + 5 pool and 2 ``caffe_sgd``
+     launches per step,
      peak memory, a profile; (d) ``python -m dsrg_tpu_torch.tools.
      synth_check --dataset coco --image-format png`` (200 iterations at
      batch 8 on the ``easy`` set at 321, ``test_coco``'s streaming mIoU and
@@ -287,18 +300,19 @@ def _time_ms_cold(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def _time_ms(fn, iters: int, queued: bool = False) -> float:
+def _time_ms(fn, iters: int, queued: bool = False, cover_ms: float = 0.0) -> float:
     """Ms per call of ``fn``, averaged over ``iters`` calls between two events
     on the card. By default the calls are issued to an idle card, so a call
     that is shorter than its host work reads the host's launch rate. With
-    ``queued`` they wait behind a ~25 ms spin of the card and run back to
-    back: device time only, the host's launch overhead (tens of us a wrapper
-    call) hidden. The kernel rows of phases 3-4 are timed queued."""
+    ``queued`` they wait behind a ~25 ms spin of the card (longer by
+    ``cover_ms``, the host time the calls take to issue in all) and run back
+    to back: device time only, the host's launch overhead (tens of us a
+    wrapper call) hidden. The kernel rows of phases 3-4 are timed queued."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     if queued:
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(50_000_000 + int(2.5e6 * cover_ms))  # ~2.5e6 cycles a ms, above the H100's clock
     start.record()
     for _ in range(iters):
         fn()
@@ -667,6 +681,115 @@ def _pool_phase(pk, pooling, dev, batch: int, dtype=torch.float32, pools=POOLS, 
                                 library_ms=per["library_ms"])
     return rows
 
+SGD_CLIP = 10.0  # the ResNet solver's (--clip-gradients 10)
+
+
+def _host_ms(fn, iters: int) -> float:
+    """Host ms per call of ``fn`` issued to an idle card (no synchronise
+    inside): the cost of issuing it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return 1e3 * host
+
+
+def _foreach_sgd(opt, grads, inv) -> torch.Tensor:
+    """The same update in ``torch._foreach_*`` ops: the library yardstick
+    (the port never calls it)."""
+    names = list(opt.params)
+    w = [opt.params[n] for n in names]
+    v = [opt.velocity[n] for n in names]
+    g = torch._foreach_mul([grads.raw[n] for n in names], inv)
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+    if opt.clip_gradients > 0:
+        torch._foreach_mul_(g, torch.clamp(opt.clip_gradients / torch.clamp_min(norm, 1e-12), max=1.0))
+    lr = opt.lr_fn(opt.step_count)
+    torch._foreach_add_(g, torch._foreach_mul(w, [opt.weight_decay * opt.decay_mults[n] for n in names]))
+    torch._foreach_mul_(g, [lr * opt.lr_mults[n] for n in names])
+    torch._foreach_mul_(v, opt.momentum)
+    torch._foreach_add_(v, g)
+    torch._foreach_sub_(w, v)
+    return norm
+
+
+def _sgd_phase(dev) -> dict:
+    """The Caffe SGD kernel pair (``csrc/caffe_sgd.cu``) at the leaf sets of
+    both families (ResNet-101: 320 leaves, 44.05 M values, clip 10; VGG16-
+    LargeFOV: 50, 37.88 M, no clip), random leaves and gradient sums at
+    batch 20: three steps against the plain loop on the card (w and v bits
+    equal where the clip does not engage, within 1e-6 of each leaf's largest
+    where it does; the norm within 1e-6), 2 launches a step, then device ms
+    (queued behind a spin) beside the bound at 3.35 TB/s (24 B a value with
+    the clip, whose scale needs the norm before the apply; 20 B without it,
+    where the norm could be summed in the apply's own read of g), the host
+    ms of issuing it, and the same two for the plain loop and for
+    ``torch._foreach_*``.  Returns the kernels' row."""
+    from dsrg_tpu_torch.models import FAMILIES
+    from dsrg_tpu_torch.train.optimizer import CaffeSGD, ScaledGrads, lr_step
+    from dsrg_tpu_torch.train.sgd_kernels import caffe_sgd
+
+    row = {}
+    for family, clip in (("resnet101", SGD_CLIP), ("vgg16", 0.0)):
+        with torch.device("meta"):
+            shapes = {n: p.shape for n, p in FAMILIES[family](num_classes=21).named_parameters()}
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        leaves = {n: torch.randn(s, generator=gen, device=dev) * 0.05 for n, s in shapes.items()}
+        values = sum(t.numel() for t in leaves.values())
+        # (kernel, plain) with the family's clip, and with the clip off
+        pairs = [tuple(CaffeSGD({n: t.clone() for n, t in leaves.items()}, lr_step(1e-3, 0.1, 2000),
+                                clip_gradients=c) for _ in range(2)) for c in dict.fromkeys((clip, 0.0))]
+        inv = 1.0 / torch.clamp_min(torch.tensor(float(TRAIN_BATCH), device=dev), 1.0)
+        worst, engaged = 0.0, False
+        for _ in range(3):
+            raw = {n: torch.randn(s, generator=gen, device=dev) * 0.5 for n, s in shapes.items()}
+            for kern, plain in pairs:
+                got, ref = ScaledGrads(raw, inv), ScaledGrads(raw, inv)
+                before = caffe_sgd.launches
+                kern.step(got)
+                plain._step_plain(ref)
+                plain.step_count += 1
+                if caffe_sgd.launches != before + 2:
+                    raise SystemExit(f"caffe_sgd ({family}): {caffe_sgd.launches - before} launches, expected 2")
+                worst = max(worst, abs(got.norm().item() / ref.norm().item() - 1.0))
+                engaged = engaged or (kern is pairs[0][0] and ref.norm().item() > clip > 0)
+        for i, (kern, plain) in enumerate(pairs):
+            for n in shapes:
+                for a, b in ((kern.params[n], plain.params[n]), (kern.velocity[n], plain.velocity[n])):
+                    if i == 0 and engaged:
+                        if (a - b).abs().max().item() > 1e-6 * b.abs().max().item():
+                            raise SystemExit(f"caffe_sgd ({family}, clip engaged): {n} departs from the plain loop")
+                    elif not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                        raise SystemExit(f"caffe_sgd ({family}): {n} differs in bits from the plain loop")
+        if worst > 1e-6:
+            raise SystemExit(f"caffe_sgd ({family}): the norm departs by {worst:.2e} from the plain loop's")
+        opt = pairs[0][0]
+        kernel_host = _host_ms(lambda: opt.step(ScaledGrads(raw, inv)), 20)
+        kernel_ms = _time_ms(lambda: opt.step(ScaledGrads(raw, inv)), 20, True, 20 * kernel_host)
+        plain_host = _host_ms(lambda: opt._step_plain(ScaledGrads(raw, inv)), 3)
+        plain_ms = _time_ms(lambda: opt._step_plain(ScaledGrads(raw, inv)), 3, True, 3 * 1.5 * plain_host)
+        lib_host = _host_ms(lambda: _foreach_sgd(opt, ScaledGrads(raw, inv), inv), 5)
+        lib_ms = _time_ms(lambda: _foreach_sgd(opt, ScaledGrads(raw, inv), inv), 5, True, 5 * 1.5 * lib_host)
+        per_value = 24 if clip > 0 else 20
+        bound_ms = 1e3 * per_value * values / PEAK_BYTES
+        print(f"caffe_sgd ({family}: {len(shapes)} leaves, {values / 1e6:.2f} M values, clip "
+              f"{clip or 'off'}{', engaged' if engaged else ''}): w and v bits equal to the plain loop"
+              f"{' (clip off; within 1e-6 with it)' if engaged else ''}, norm within {worst:.1e}; kernel pair "
+              f"{kernel_ms:.4f} ms ({kernel_ms / bound_ms:.2f}x the bound {bound_ms:.4f} ms at {per_value} B a value; "
+              f"{24 * values / kernel_ms / 1e6:.0f} GB/s at the 24 B it moves), host {kernel_host:.3f} ms a step; "
+              f"plain loop "
+              f"{plain_ms:.3f} ms device, {plain_host:.1f} ms host; torch._foreach_* {lib_ms:.3f} ms device, "
+              f"{lib_host:.2f} ms host", flush=True)
+        if family == "resnet101":
+            row = dict(max_rel_err=worst, ms=kernel_ms, host_ms=kernel_host, plain_ms=plain_ms,
+                       plain_host_ms=plain_host, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+        del pairs, opt, leaves, raw, got, ref
+        torch.cuda.empty_cache()
+    return row
+
 
 def _group(kernel: str) -> str:
     name = kernel.lower()
@@ -676,6 +799,8 @@ def _group(kernel: str) -> str:
         return "mmgrid_slice"
     if "pool_bwd" in name:
         return "pool_bwd"
+    if "sgd_sqnorm_kernel" in name or "sgd_apply_kernel" in name:
+        return "caffe_sgd"
     if "nccl" in name:
         return "all-reduce"
     # cuDNN's FFT convolutions run complex ("cf32") GEMMs between their FFTs
@@ -756,8 +881,8 @@ def _train_batch(rng, cfg, dev) -> dict:
 
 
 def _train_phase(pk, rng, out_dir: Path) -> tuple:
-    """The stage-1 step at full width; returns the pool kernels' launches
-    and the ms per step."""
+    """The stage-1 step at full width; returns the pool kernels' and the
+    Caffe SGD pair's launches and the ms per step."""
     from dsrg_tpu_torch.config import Stage1Config
     from dsrg_tpu_torch.models import DeepLabLargeFOV
     from dsrg_tpu_torch.ops.grow import region_grow
@@ -796,8 +921,8 @@ def _train_phase(pk, rng, out_dir: Path) -> tuple:
     print(f"main path (train): {1e3 * dt:.1f} ms/step, {cfg.batch_size / dt:.2f} images/s over "
           f"{TRAIN_STEPS} steps; launches {launches}; region-growing convergence checks "
           f"{checks:.1f}/step; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
-        raise SystemExit(f"pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
+    if launches != _step_launches(TRAIN_STEPS):
+        raise SystemExit(f"train kernel launches {launches}, expected {_step_launches(TRAIN_STEPS)}")
 
     _profile("train, one step", lambda: step(batch), out_dir / "chip_smoke_train_profile.txt", conv_shapes=True)
 
@@ -1011,7 +1136,8 @@ def _stage2_batch(images, masks, cfg, dev) -> dict:
 
 def _stage2_phase(pk, images, masks, out_dir: Path) -> tuple:
     """The stage-2 step at full width on phase 7's pseudo ground truth;
-    returns the pool kernels' launches and the ms per step."""
+    returns the pool kernels' and the Caffe SGD pair's launches and the ms
+    per step."""
     from dsrg_tpu_torch.config import Stage2Config
     from dsrg_tpu_torch.models import DeepLabLargeFOV
     from dsrg_tpu_torch.train.stage2 import init_stage2, make_stage2_step
@@ -1048,8 +1174,8 @@ def _stage2_phase(pk, images, masks, out_dir: Path) -> tuple:
     print(f"main path (stage 2): {1e3 * dt:.1f} ms/step, {cfg.batch_size / dt:.2f} images/s over "
           f"{TRAIN_STEPS} steps; launches {launches}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if launches != {n: 0 if n.endswith("_bf16") else 5 * TRAIN_STEPS for n in launches}:
-        raise SystemExit(f"stage-2 pool kernel launches {launches}, expected {5 * TRAIN_STEPS} of each fp32 one")
+    if launches != _step_launches(TRAIN_STEPS):
+        raise SystemExit(f"stage-2 kernel launches {launches}, expected {_step_launches(TRAIN_STEPS)}")
     _profile("stage 2, one step", lambda: step(batch), out_dir / "chip_smoke_stage2_profile.txt", conv_shapes=True)
     keep = {"state": state, "cfg": cfg, "batch": batch}  # for phase 8b
     del state, step, model, batch, metrics
@@ -1140,8 +1266,9 @@ def _dp_step_phase(pk, what: str, ctx: dict, make, plain_ms: float, pad_to: int,
     same weights and batch as its plain step: held to it at the default
     config; the batch padded to ``pad_to`` rows (mirroring and dropout off:
     the draws of a padded batch are not the unpadded one's) held to the
-    unpadded step; DP_STEPS timed steps with 5 + 5 pool launches each, and
-    one profiled.  Returns the pool launches of the timed steps."""
+    unpadded step; DP_STEPS timed steps with 5 + 5 pool and 2 ``caffe_sgd``
+    launches each, and one profiled.  Returns the launches of the timed
+    steps."""
     import dataclasses
 
     from dsrg_tpu_torch.parallel import data_parallel_step, shard_batch
@@ -1191,8 +1318,8 @@ def _dp_step_phase(pk, what: str, ctx: dict, make, plain_ms: float, pad_to: int,
         raise SystemExit(f"{what}: non-finite data-parallel metrics")
     print(f"main path ({what}, data-parallel over NCCL, world size {mesh.world_size}): {1e3 * dt:.1f} ms/step "
           f"over {DP_STEPS} steps, against the plain step's {plain_ms:.1f} ms; launches {launches}", flush=True)
-    if launches != {n: 0 if n.endswith("_bf16") else 5 * DP_STEPS for n in launches}:
-        raise SystemExit(f"{what}: data-parallel pool launches {launches}, expected {5 * DP_STEPS} of each fp32 one")
+    if launches != _step_launches(DP_STEPS):
+        raise SystemExit(f"{what}: data-parallel kernel launches {launches}, expected {_step_launches(DP_STEPS)}")
     # the reduction alone: one rank's NCCL all-reduce may copy nothing, the
     # concatenation and the split remain
     grads = [torch.zeros_like(p) for p in state.optimizer.params.values()]
@@ -1246,20 +1373,37 @@ def _set_tf32(on: bool) -> None:
 
 
 def _launch_counts(pk) -> dict:
+    """The train step's kernels' launches: the pool kernels and the Caffe SGD pair."""
+    from dsrg_tpu_torch.train.sgd_kernels import caffe_sgd
+
     return {"pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches,
-            "pool_bwd_h_bf16": pk.pool_bwd_h.launches_bf16, "pool_bwd_w_bf16": pk.pool_bwd_w.launches_bf16}
+            "pool_bwd_h_bf16": pk.pool_bwd_h.launches_bf16, "pool_bwd_w_bf16": pk.pool_bwd_w.launches_bf16,
+            "caffe_sgd": caffe_sgd.launches}
 
 
 def _zero_counts(pk) -> None:
+    from dsrg_tpu_torch.train.sgd_kernels import caffe_sgd
+
     pk.pool_bwd_h.launches = pk.pool_bwd_w.launches = 0
     pk.pool_bwd_h.launches_bf16 = pk.pool_bwd_w.launches_bf16 = 0
+    caffe_sgd.launches = 0
+
+
+def _step_launches(steps: int, pools: int = 5, bf16: bool = False) -> dict:
+    """What ``_launch_counts`` reads after ``steps`` train steps: ``pools`` +
+    ``pools`` pool launches a step of the precision's element type (5 for
+    VGG, 1 for ResNet-101) and the Caffe SGD pair's 2."""
+    fp32, half = (0, pools * steps) if bf16 else (pools * steps, 0)
+    return {"pool_bwd_h": fp32, "pool_bwd_w": fp32, "pool_bwd_h_bf16": half, "pool_bwd_w_bf16": half,
+            "caffe_sgd": 2 * steps}
 
 
 def _timed_steps(pk, what: str, precision: str, step, batch, n_images: int, out_dir: Path,
                  pools: int = 5) -> dict:
     """Two warm-up and TRAIN_STEPS timed steps of ``step``, the pool kernels'
     launches by element type (``pools`` + ``pools`` per step, of the
-    precision's type: 5 for VGG, 1 for ResNet-101), peak
+    precision's type: 5 for VGG, 1 for ResNet-101) and the Caffe SGD pair's
+    (2 per step), peak
     memory (of the warm-up, which holds cuDNN's algorithm search when the
     precision's shapes are new, and of the timed steps) and a profile of one
     step; returns the launches."""
@@ -1278,14 +1422,13 @@ def _timed_steps(pk, what: str, precision: str, step, batch, n_images: int, out_
     last = {k: v.item() for k, v in metrics[-1].items()}
     if not all(np.isfinite(v) for m in metrics for v in (t.item() for t in m.values())):
         raise SystemExit(f"{what} {precision}: non-finite metrics {last}")
-    fp32, bf16 = (0, pools * TRAIN_STEPS) if precision == "bf16" else (pools * TRAIN_STEPS, 0)
-    expected = {"pool_bwd_h": fp32, "pool_bwd_w": fp32, "pool_bwd_h_bf16": bf16, "pool_bwd_w_bf16": bf16}
+    expected = _step_launches(TRAIN_STEPS, pools, precision == "bf16")
     print(f"main path ({what}, {precision}): {1e3 * dt:.1f} ms/step, {n_images / dt:.2f} images/s over "
           f"{TRAIN_STEPS} steps; launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB (warm-up {warm_peak:.2f} GiB); last step "
           + ", ".join(f"{k} {v:.6g}" for k, v in last.items()), flush=True)
     if launches != expected:
-        raise SystemExit(f"{what} {precision}: pool kernel launches {launches}, expected {expected}")
+        raise SystemExit(f"{what} {precision}: kernel launches {launches}, expected {expected}")
     _profile(f"{what}, {precision}, one step", lambda: step(batch),
              out_dir / f"chip_smoke_{what.replace(' ', '')}_{precision}_profile.txt", conv_shapes=True)
     return launches
@@ -1301,7 +1444,7 @@ def _precision_phase(pk, mk, dev, images, gt_masks, params, fp32_masks, out_dir:
     from dsrg_tpu_torch.models import DeepLabLargeFOV
     from dsrg_tpu_torch.train import stage1, stage2
 
-    launches = dict.fromkeys(("pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16"), 0)
+    launches = dict.fromkeys(_step_launches(0), 0)
     try:
         for what, cfg_cls, batch_size, mod in (("stage 1", Stage1Config, TRAIN_BATCH, stage1),
                                                ("stage 2", Stage2Config, STAGE2_BATCH, stage2)):
@@ -1463,11 +1606,9 @@ def _learning_phase(pk, dev, out_dir: Path) -> dict:
     low = {k: v for k, v in scores.items() if not v >= LEARN_MIOU}
     if low:
         raise SystemExit(f"learning check: miou3 below {LEARN_MIOU}: {low}")
-    expected = {"fp32": (LEARN_ITERS * 5, 0), "bf16": (0, LEARN_ITERS * 5)}
-    for precision, (fp32, bf16) in expected.items():
-        if launches[precision] != {"pool_bwd_h": fp32, "pool_bwd_w": fp32, "pool_bwd_h_bf16": bf16,
-                                   "pool_bwd_w_bf16": bf16}:
-            raise SystemExit(f"learning check {precision}: pool kernel launches {launches[precision]}")
+    for precision in launches:
+        if launches[precision] != _step_launches(LEARN_ITERS, bf16=precision == "bf16"):
+            raise SystemExit(f"learning check {precision}: kernel launches {launches[precision]}")
     return {k: launches["fp32"][k] + launches["bf16"][k] for k in launches["fp32"]}
 
 
@@ -1475,7 +1616,8 @@ def _learning_phase(pk, dev, out_dir: Path) -> dict:
 # on, at the reference's batches for the trainers' own runs)
 RECIPE_ITERS, RECIPE_BATCH = LEARN_ITERS, 8
 GEOM_ITERS, GEOM_EVERY, GEOM_RESUME_TO, GEOM_F_ITERS = 12, 6, 18, 15
-KERNEL_NAMES = ("mmgrid_splat", "mmgrid_slice", "pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16")
+KERNEL_NAMES = ("mmgrid_splat", "mmgrid_slice", "pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16",
+                "caffe_sgd")
 
 
 def _run_cli(module: str, argv: list, log: Path) -> list:
@@ -1648,10 +1790,10 @@ def _recipe_phase(dev, out_dir: Path, in_memory_ms: dict) -> dict:
     for name, launches in zip(names, per_phase):
         print(f"recipe: {name} kernel launches {launches}", flush=True)
         add(launches)
-    pool = {"pool_bwd_h": 5 * RECIPE_ITERS, "pool_bwd_w": 5 * RECIPE_ITERS}
+    pool = {"pool_bwd_h": 5 * RECIPE_ITERS, "pool_bwd_w": 5 * RECIPE_ITERS, "caffe_sgd": 2 * RECIPE_ITERS}
     grid = {"mmgrid_splat": 11, "mmgrid_slice": 11}  # per chunk of 8: mask normalisation + 10 iterations
-    expected = [pool, {k: v * len(train_ids) // 8 for k, v in grid.items()}, pool,
-                {k: v * len(val_ids) // 8 for k, v in grid.items()}]
+    expected = [pool, {"caffe_sgd": 0, **{k: v * len(train_ids) // 8 for k, v in grid.items()}}, pool,
+                {"caffe_sgd": 0, **{k: v * len(val_ids) // 8 for k, v in grid.items()}}]
     if len(per_phase) != 4 or any(got.get(k) != v for got, want in zip(per_phase, expected) for k, v in want.items()):
         raise SystemExit(f"recipe: kernel launches {per_phase}, expected at least {expected}")
     _check_masks(work / "DSRGOutput", train_ids, (LEARN_SIZE, LEARN_SIZE))
@@ -1695,8 +1837,9 @@ def _recipe_phase(dev, out_dir: Path, in_memory_ms: dict) -> dict:
               f"{ips:.2f} images/s over steps {first + 1}-{last} (display lines); StepTimer p50 at iter {last} "
               f"{p50} ms/iter (over the display window); in memory (phase "
               f"{6 if mem == 's' else 8}) {in_memory_ms[mem]:.1f} ms/step; launches {launches}", flush=True)
-        if launches["pool_bwd_h"] != 5 * n_steps or launches["pool_bwd_w"] != 5 * n_steps:
-            raise SystemExit(f"trainer CLI stage {name}: pool launches {launches}, expected {5 * n_steps} each")
+        want = {"pool_bwd_h": 5 * n_steps, "pool_bwd_w": 5 * n_steps, "caffe_sgd": 2 * n_steps}
+        if any(launches.get(k) != v for k, v in want.items()):
+            raise SystemExit(f"trainer CLI stage {name}: launches {launches}, expected {want}")
     profile = [line for line in text["f"] if line.startswith("profile:")]
     print(f"trainer CLI (stage f) steps 10-14 under --profile-dir: {profile}", flush=True)
     if not profile:
@@ -1759,13 +1902,13 @@ def _resnet_weights(dev) -> dict:
 def _resnet_steps(pk, dev, weights, images, gt_masks, out_dir: Path) -> dict:
     """Both steps of the ResNet at full width, batch 20 / 10 with the
     default configs, in fp32 (TF32 off), TF32 and bf16 (stage 1 with
-    ``crf_fast``): 1 + 1 pool launches per step; tiny steps card vs CPU.
-    Returns the pool kernels' launches."""
+    ``crf_fast``): 1 + 1 pool and 2 ``caffe_sgd`` launches per step; tiny
+    steps card vs CPU.  Returns those kernels' launches."""
     from dsrg_tpu_torch.config import Stage1Config, Stage2Config
     from dsrg_tpu_torch.models import ResNet101DeepLab
     from dsrg_tpu_torch.train import stage1, stage2
 
-    launches = dict.fromkeys(("pool_bwd_h", "pool_bwd_w", "pool_bwd_h_bf16", "pool_bwd_w_bf16"), 0)
+    launches = dict.fromkeys(_step_launches(0), 0)
     try:
         for what, cfg_cls, batch_size, mod in (("resnet stage 1", Stage1Config, TRAIN_BATCH, stage1),
                                                ("resnet stage 2", Stage2Config, STAGE2_BATCH, stage2)):
@@ -1919,8 +2062,9 @@ def _resnet_clis(dev, out_dir: Path) -> dict:
     for name, n_steps in (("first", RESNET_CLI_ITERS), ("resumed", RESNET_CLI_RESUME_TO - RESNET_CLI_ITERS)):
         launches = _launch_lines(runs[name])[-1]
         add(runs[name])
-        if launches["pool_bwd_h"] != n_steps or launches["pool_bwd_w"] != n_steps:
-            raise SystemExit(f"ResNet train CLI ({name}): pool launches {launches}, expected {n_steps} each")
+        want = {"pool_bwd_h": n_steps, "pool_bwd_w": n_steps, "caffe_sgd": 2 * n_steps}
+        if any(launches.get(k) != v for k, v in want.items()):
+            raise SystemExit(f"ResNet train CLI ({name}): launches {launches}, expected {want}")
     ms, ips, p50 = _display_ms(runs["first"], 2, RESNET_CLI_ITERS, TRAIN_BATCH)
     print(f"ResNet train CLI (stage s, batch {TRAIN_BATCH} @ {LEARN_SIZE}^2, fp32, TF32 off, warm start from "
           f"calibrate_bn's file): {ms:.1f} ms/step over steps 3-{RESNET_CLI_ITERS} (display lines), StepTimer p50 "
@@ -2099,8 +2243,9 @@ def _coco_learning(pk, mk, base: Path, logs: Path) -> tuple:
     rates = [line for _, line in lines if re.match(r"\d+ images in ", line)]
     print(f"COCO learning check (synth_check --dataset coco, {LEARN_ITERS} iterations at batch {LEARN_BATCH}): "
           f"{result}; eval {rates}; launches train {per_phase[0]}, test_coco {per_phase[-1]}", flush=True)
-    if per_phase[0].get("pool_bwd_h") != 5 * LEARN_ITERS or per_phase[0].get("pool_bwd_w") != 5 * LEARN_ITERS:
-        raise SystemExit(f"COCO learning check: pool launches {per_phase[0]}")
+    want = {"pool_bwd_h": 5 * LEARN_ITERS, "pool_bwd_w": 5 * LEARN_ITERS, "caffe_sgd": 2 * LEARN_ITERS}
+    if any(per_phase[0].get(k) != v for k, v in want.items()):
+        raise SystemExit(f"COCO learning check: launches {per_phase[0]}, expected {want}")
     if not result["miou3"] >= LEARN_MIOU:
         raise SystemExit(f"COCO learning check: miou3 {result['miou3']} below {LEARN_MIOU}")
     root = work / "data"
@@ -2117,8 +2262,9 @@ def _coco_learning(pk, mk, base: Path, logs: Path) -> tuple:
     print(f"COCO train CLI (--cache-decoded, batch 20 @ {LEARN_SIZE}^2, fp32): {ms:.1f} ms/step, {ips:.2f} images/s "
           f"over steps {COCO_CLI_FIRST + 1}-{COCO_CLI_LAST} (display lines); StepTimer p50 {p50} ms/iter; launches "
           f"{launches}; cache files {cached}", flush=True)
-    if launches["pool_bwd_h"] != 5 * COCO_CLI_ITERS or launches["pool_bwd_w"] != 5 * COCO_CLI_ITERS:
-        raise SystemExit(f"COCO train CLI: pool launches {launches}")
+    want = {"pool_bwd_h": 5 * COCO_CLI_ITERS, "pool_bwd_w": 5 * COCO_CLI_ITERS, "caffe_sgd": 2 * COCO_CLI_ITERS}
+    if any(launches.get(k) != v for k, v in want.items()):
+        raise SystemExit(f"COCO train CLI: launches {launches}, expected {want}")
     return counts, work / "models-coco" / f"step_{LEARN_ITERS}_params", root
 
 
@@ -2543,7 +2689,7 @@ def main() -> int:
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
 
     t0 = time.perf_counter()
-    logs = _build.build(mk.KERNELS + pk.KERNELS)
+    logs = _build.build(mk.KERNELS + pk.KERNELS + ("caffe_sgd",))
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in _ptxas_summary(log):
@@ -2566,6 +2712,8 @@ def main() -> int:
         for batch in (TRAIN_BATCH, STAGE2_BATCH):
             _pool_phase(pk, pooling, dev, batch, dtype, RESNET_POOL1, "ResNet-101")
     phase_done("4 (pool kernels, fp32 and bf16)")
+    rows["caffe_sgd"] = _sgd_phase(dev)
+    phase_done("4b (the Caffe SGD kernel pair)")
 
     model = DeepLabLargeFOV(num_classes=21)
     params = _weights(model, rng)
@@ -2691,6 +2839,10 @@ def main() -> int:
         {"name": name + sfx, "route": "cuda", "source": f"dsrg_tpu_torch/csrc/{name}.cu",
          "replaces": f"dsrg_tpu/ops/pallas_pool.py:{line}", "launches": launches[name + sfx], **rows[name + sfx]}
         for name, line in (("pool_bwd_h", 166), ("pool_bwd_w", 189)) for sfx in ("", "_bf16")
+    ] + [
+        {"name": "caffe_sgd", "route": "cuda", "source": "dsrg_tpu_torch/csrc/caffe_sgd.cu",
+         "replaces": "none: the JAX package's update is XLA's fusion", "launches": launches["caffe_sgd"],
+         **rows["caffe_sgd"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: total {time.perf_counter() - start:.1f} s", flush=True)

@@ -44,7 +44,7 @@ from dsrg_tpu_torch.ops.crf.api import crf_refine_with_log, crf_refine_with_log_
 from dsrg_tpu_torch.ops.grow import dsrg_grow
 from dsrg_tpu_torch.ops.softmax import MIN_PROB, clamp_straight_through, floored_softmax
 from dsrg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
-from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_step
+from dsrg_tpu_torch.train.optimizer import CaffeSGD, ScaledGrads, lr_step
 from dsrg_tpu_torch.train.train_state import TrainState
 from dsrg_tpu_torch.utils.profiling import span
 
@@ -207,7 +207,7 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
             loss_sum, sum_seed, sum_con, n_valid, seed_pixels = sums
 
             inv = 1.0 / torch.clamp_min(n_valid, 1.0)
-            grads = {n: g * inv for n, g in zip(names, grads)}
+            grads = ScaledGrads(dict(zip(names, grads)), inv)
             optimizer.step(grads)
             with torch.no_grad():
                 return {
@@ -215,7 +215,7 @@ def make_stage1_step(model: nn.Module, cfg: Stage1Config, optimizer: CaffeSGD,
                     "loss_seed": sum_seed * inv,
                     "loss_constrain": sum_con * inv,
                     "seed_pixels": seed_pixels,
-                    "grad_norm": global_norm(grads.values()),
+                    "grad_norm": grads.norm(),
                 }
 
     train_step.axis_name = axis_name

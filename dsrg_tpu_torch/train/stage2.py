@@ -27,7 +27,7 @@ from dsrg_tpu_torch.config import Stage2Config
 from dsrg_tpu_torch.losses import softmax_cross_entropy_ignore_sums
 from dsrg_tpu_torch.ops.interp import caffe_interp_shrink
 from dsrg_tpu_torch.parallel.mesh import Mesh, all_reduce_sum
-from dsrg_tpu_torch.train.optimizer import CaffeSGD, global_norm, lr_poly
+from dsrg_tpu_torch.train.optimizer import CaffeSGD, ScaledGrads, lr_poly
 from dsrg_tpu_torch.train.stage1 import _device_normalize, check_compute_dtype, init_params, rank_streams
 from dsrg_tpu_torch.train.train_state import TrainState
 from dsrg_tpu_torch.utils.profiling import span
@@ -108,13 +108,13 @@ def make_stage2_step(model: nn.Module, cfg: Stage2Config, optimizer: CaffeSGD,
                                                                     axis_name)
 
             inv = 1.0 / torch.clamp_min(n_valid, 1.0)
-            grads = {n: g * inv for n, g in zip(names, grads)}
+            grads = ScaledGrads(dict(zip(names, grads)), inv)
             optimizer.step(grads)
             with torch.no_grad():
                 return {
                     "loss": loss_sum * inv,
                     "accuracy": acc_sum * inv,
-                    "grad_norm": global_norm(grads.values()),
+                    "grad_norm": grads.norm(),
                 }
 
     train_step.axis_name = axis_name

@@ -202,10 +202,12 @@ def kernel_launches() -> Dict[str, int]:
     """Launches of each CUDA kernel of the port in this process so far."""
     from dsrg_tpu_torch.ops import pool_kernels as pk
     from dsrg_tpu_torch.ops.crf import mmgrid_kernels as mk
+    from dsrg_tpu_torch.train.sgd_kernels import caffe_sgd
 
     return {"mmgrid_splat": mk.splat.launches, "mmgrid_slice": mk.slice.launches,
             "pool_bwd_h": pk.pool_bwd_h.launches, "pool_bwd_w": pk.pool_bwd_w.launches,
-            "pool_bwd_h_bf16": pk.pool_bwd_h.launches_bf16, "pool_bwd_w_bf16": pk.pool_bwd_w.launches_bf16}
+            "pool_bwd_h_bf16": pk.pool_bwd_h.launches_bf16, "pool_bwd_w_bf16": pk.pool_bwd_w.launches_bf16,
+            "caffe_sgd": caffe_sgd.launches}
 
 
 class StepTimer:

@@ -223,7 +223,7 @@ def test_train_resnet_from_the_caffemodel_then_serve_it(warm_start, tmp_path, ca
     assert "trained steps 0 to 2" in out
     assert json.loads(out.split("kernel launches:")[1].splitlines()[0]) == {
         "mmgrid_splat": 0, "mmgrid_slice": 0, "pool_bwd_h": 0, "pool_bwd_w": 0, "pool_bwd_h_bf16": 0,
-        "pool_bwd_w_bf16": 0}  # the CPU runs the plain versions
+        "pool_bwd_w_bf16": 0, "caffe_sgd": 0}  # the CPU runs the plain versions
     params = ckpt.load_params(str(snap / "step_2_params"))
     want = timport.resnet_blobs_to_torch(timport.load_caffemodel(path), ResNet101DeepLab().state_dict())
     for key in ("bn1.running_mean", "res4_22.bn3.running_var", "res5_2.bn2.weight", "res3_0.shortcut_bn.bias"):

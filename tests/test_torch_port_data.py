@@ -544,7 +544,7 @@ def test_profiling_copies_and_trace(tmp_path):
     spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
     assert list(spans) == ["dsrg.step"] and spans["dsrg.step"]["count"] == 1
     assert set(profiling.kernel_launches()) == {"mmgrid_splat", "mmgrid_slice", "pool_bwd_h", "pool_bwd_w",
-                                                "pool_bwd_h_bf16", "pool_bwd_w_bf16"}
+                                                "pool_bwd_h_bf16", "pool_bwd_w_bf16", "caffe_sgd"}
 
 
 def test_no_port_module_imports_pil():
